@@ -1,0 +1,106 @@
+"""Render the smoke fixture that `kiri_tpu_torch` checks itself against.
+
+The GPU machine has no text renderer (no PIL, no cv2), so the lines and the
+reference package's answers are rendered here once and committed:
+
+    python scripts/make_torch_smoke_lines.py
+
+writes ``kiri_tpu_torch/assets/smoke_lines.npz`` with 64 bilingual lines
+(40% Khmer, as in ``bench.py``):
+
+* ``crops_flat`` / ``crop_shapes``: the raw u8 crops, concatenated row-major,
+  at heights that need both down- and upscaling to the model height; every
+  seventh crop is inverted (light text on dark);
+* ``imgs`` [64, 48, 640] u8 and ``widths``: the same crops through the host
+  preprocessing (``kiri_tpu.ops.preprocess.preprocess_crops``);
+* ``texts``: the ground truth;
+* ``{batch,crops}_{texts,conf}_{f32,bf16}``: ``kiri_tpu``'s CTC answers for
+  ``recognize_batch(imgs, "ctc", widths)`` and ``recognize_crops(crops,
+  "ctc")`` with the committed checkpoint, at float32 and bfloat16 on the CPU.
+"""
+from __future__ import annotations
+
+import random
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+N_LINES = 64
+SEED = 20261016
+HEIGHTS = (32, 40, 48, 56, 72)
+OUT = REPO / "kiri_tpu_torch" / "assets" / "smoke_lines.npz"
+
+
+def main() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from kiri_tpu.data.synth import (DatasetGenerator, ImageRenderer,
+                                     sample_khmer_text, sample_text)
+    from kiri_tpu.engine import RecognizerEngine
+    from kiri_tpu.ops.preprocess import preprocess_crops
+    from kiri_tpu.tokenizer import CharTokenizer
+    from kiri_tpu.train.checkpoints import find_vocab_file, load_checkpoint
+
+    ckpt = str(REPO / "models" / "model.safetensors")
+    variables, cfg, meta = load_checkpoint(ckpt)
+    tok = CharTokenizer(find_vocab_file(meta.get("vocab_path", ""), ckpt), cfg)
+
+    gen = DatasetGenerator(tempfile.mkdtemp(prefix="kiri_smoke_"),
+                           height=cfg.IMG_H, augment=False, seed=SEED)
+    rng = random.Random(SEED)
+    charset = "".join(t for t in tok.token_to_id if len(t) == 1
+                      and t.isascii() and t.isprintable())
+    crops, texts = [], []
+    i = 0
+    while len(crops) < N_LINES:
+        text = (sample_khmer_text(rng, 2, 4) if i % 5 < 2
+                else sample_text(rng, 2, 5, charset))
+        gen.renderer = ImageRenderer(height=HEIGHTS[i % len(HEIGHTS)],
+                                     augment=False)
+        img = gen.generate_one(text)
+        i += 1
+        if img is None:
+            continue
+        if len(crops) % 7 == 3:
+            img = 255 - img
+        crops.append(np.ascontiguousarray(img, np.uint8))
+        texts.append(text)
+
+    imgs, widths = preprocess_crops(cfg, crops)
+    out = {
+        "crops_flat": np.concatenate([c.ravel() for c in crops]),
+        "crop_shapes": np.asarray([c.shape for c in crops], np.int32),
+        "imgs": imgs,
+        "widths": widths,
+        "texts": np.asarray(texts),
+    }
+    for dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+        engine = RecognizerEngine(variables, cfg.replace(COMPUTE_DTYPE=dtype),
+                                  tok)
+        for path, res in (
+                ("batch", engine.recognize_batch(imgs, "ctc", widths=widths)),
+                ("crops", engine.recognize_crops(crops, "ctc"))):
+            out[f"{path}_texts_{tag}"] = np.asarray([t for t, _ in res])
+            out[f"{path}_conf_{tag}"] = np.asarray([c for _, c in res],
+                                                   np.float32)
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(OUT, **out)
+    n_kh = sum(any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts)
+    print(f"wrote {OUT} ({OUT.stat().st_size} bytes): {len(texts)} lines, "
+          f"{n_kh} Khmer, crop heights {sorted(set(c.shape[0] for c in crops))}"
+          f", max crop width {max(c.shape[1] for c in crops)}, "
+          f"clipped {int((widths >= cfg.IMG_W).sum())}")
+    for tag in ("f32", "bf16"):
+        for path in ("batch", "crops"):
+            hyp = out[f"{path}_texts_{tag}"]
+            print(tag, path, "exact", sum(a == b for a, b in zip(hyp, texts)))
+
+
+if __name__ == "__main__":
+    main()

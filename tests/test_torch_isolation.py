@@ -1,0 +1,64 @@
+"""kiri_tpu_torch stands alone: it imports neither JAX nor the JAX package
+(nor safetensors, cv2 or PIL, which the GPU machine lacks), and its entry
+points refuse to fall back to the CPU when no card is present."""
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "kiri_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "kiri_tpu", "safetensors", "cv2", "PIL", "flax",
+             "optax"}
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_without_jax():
+    mods = _port_modules()
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(mods) >= 15
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_no_forbidden_imports(path):
+    tree = ast.parse((REPO / path).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert not names & FORBIDDEN, names & FORBIDDEN
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    from kiri_tpu_torch.checkpoints import load_checkpoint
+    from kiri_tpu_torch.device import resolve_device
+    from kiri_tpu_torch.engine import RecognizerEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = str(REPO / "models" / "model.safetensors")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RecognizerEngine.from_checkpoint(ckpt)
+    assert resolve_device("cpu").type == "cpu"
