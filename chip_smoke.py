@@ -6,14 +6,19 @@
 1. builds the CUDA kernels from ``kiri_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) into ``build/kiri_tpu_torch/``;
 2. holds each kernel against its plain torch version on the card at the
-   shapes of the main path, and times kernel, plain version and (for the
-   stem) the cuDNN convolutions as a yardstick;
+   shapes of the main path: the bf16 tensor-core stem and the float32 stem
+   at every width bucket (the bf16 one also at a ragged batch and widths,
+   and on its edge rows and columns alone), the preprocess kernel on the
+   main path's input, on edge cases and on extreme shapes; and times
+   kernel, plain version and (for the stem, as a whole and launch by
+   launch) the cuDNN convolutions as a yardstick;
 3. drives the main path — ``RecognizerEngine.recognize_batch(imgs, "ctc",
    widths)`` and ``recognize_crops(crops, "ctc")`` with the committed
-   checkpoint over the committed smoke lines — with the launch counters set
-   to 0 just before, and checks that both kernels ran, that bfloat16 (the
-   checkpoint's dtype) reads each script with CER <= 0.02, and that float32
-   gives the JAX package's stored texts line for line;
+   checkpoint over the committed smoke lines — in bfloat16 (the
+   checkpoint's dtype) and in float32, each with the launch counters set to
+   0 just before, and checks that every kernel ran, that bfloat16 reads
+   each script with CER <= 0.02, and that float32 gives the JAX package's
+   stored texts line for line;
 4. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +46,10 @@ TOL_STEM_F32 = 1e-4       # summation order only (TF32 off)
 # float32 sums taken in different orders; a flipped rounding moves a value
 # by one bf16 ulp (2^-8 relative) and later layers carry it on.
 TOL_STEM_BF16_REL = 2.0 ** -5
+# ... and each element on its own: 2 bf16 ulps of its value plus as much of
+# 1, so that a fault in small values (an edge that is off by a fraction of
+# the output scale) does not pass under the scale of the largest.
+TOL_STEM_BF16_ELEM = 2.0 ** -6
 TOL_PRE = 2e-3            # normalized units; ~0.26 of a u8 grey level
 CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" row
 BATCH = 128
@@ -75,11 +84,18 @@ def cer(pairs) -> float:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events. The
+    calls are queued behind a few milliseconds of other work on the stream,
+    so that a kernel shorter than the host's time to launch it is timed at
+    the device's pace and not at the host's."""
+    spin = torch.zeros((8192, 8192), dtype=torch.bfloat16, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.mm(spin, spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -88,95 +104,177 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _stem_convs(folded, batch, h, w):
+    """Per conv of the stem on [batch, h, w] lines: its FLOP, the values it
+    reads and writes, and the bytes of its weights and bias."""
+    convs, cin, n_in = [], 1, batch * h * w
+    for i, (sh, sw) in enumerate(((1, 1), (2, 2), (2, 2), (2, 1))):
+        wk, b = folded[2 * i], folded[2 * i + 1]
+        h, w = (h - 1) // sh + 1, (w - 1) // sw + 1
+        n_out = batch * h * w * wk.shape[1]
+        convs.append({"flop": 2.0 * n_out * 9 * cin, "n_in": n_in,
+                      "n_out": n_out, "conv0": i == 0,
+                      "w_bytes": (wk.numel() * wk.element_size()
+                                  + b.numel() * b.element_size())})
+        cin, n_in = wk.shape[1], n_out
+    return convs
+
+
+def _bound_ms(convs, in_size, peak_convs):
+    """(ops_ms, bytes_ms) of consecutive convs run as one function: conv0 at
+    the float32 rate, the others at ``peak_convs``; the first one's input,
+    the weights and the last one's output moved once."""
+    ops = sum(c["flop"] / (PEAK_F32 if c["conv0"] else peak_convs)
+              for c in convs)
+    nbytes = ((convs[0]["n_in"] + convs[-1]["n_out"]) * in_size
+              + sum(c["w_bytes"] for c in convs))
+    return ops * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def stem_phase(torch, np, model, imgs):
-    """Stem kernel vs plain at B=128 and every width bucket; times at 640."""
-    from kiri_tpu_torch.kernels.stem import (STRIDES, fold_stem_weights,
-                                             stem_fused, stem_plain)
+    """Both stem kernels vs plain at B=128 and every width bucket; the bf16
+    one also at a ragged batch and widths and on its edges alone; times at
+    width 640, the bf16 one also launch by launch. Returns the bf16 and the
+    float32 kernel's entries."""
+    from kiri_tpu_torch.kernels.stem import (STRIDES, stem_fused,
+                                             stem_fused_f32, stem_mma_layer,
+                                             stem_plain)
     from kiri_tpu_torch.ops.preprocess import normalize_u8
 
     F = torch.nn.functional
     u8 = torch.from_numpy(np.resize(imgs, (BATCH,) + imgs.shape[1:])).cuda()
     errs, errs_bf16 = {}, {}
+
+    def bf16_check(got, want, scale, what):
+        """Holds ``got`` to both bf16 tolerances; returns its max error."""
+        diff = (got - want).abs()
+        err = float(diff.max())
+        # The worst element's error as a share of its own limit.
+        share = float((diff / (TOL_STEM_BF16_ELEM * (want.abs() + 1.0))).max())
+        check(err <= TOL_STEM_BF16_REL * max(1.0, scale) and share <= 1.0
+              and bool(got.isfinite().all()),
+              f"stem bf16 {what}: max |kernel-plain| {err:.3e} (tol "
+              f"{TOL_STEM_BF16_REL:g} x max(1, scale {scale:.3f})); worst "
+              f"element at {share:.3f} of its own {TOL_STEM_BF16_ELEM:g} x "
+              f"(|plain| + 1)")
+        return err
+
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            folded = fold_stem_weights(model.stem.net, dtype)
-            for w in WIDTHS:
-                x = normalize_u8(u8[:, :, :w].contiguous(), dtype)
-                got = stem_fused(x, folded).float()
-                want = stem_plain(x, folded).float()
-                assert got.shape == (BATCH, 6, w // 4, folded[-2].shape[1])
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                if dtype == torch.float32:
-                    errs[w] = err
-                    check(err <= TOL_STEM_F32 and bool(got.isfinite().all()),
-                          f"stem f32 W={w}: max |kernel-plain| {err:.3e} "
-                          f"(tol {TOL_STEM_F32:g}, scale {scale:.3f})")
-                else:
-                    errs_bf16[w] = err
-                    check(err <= TOL_STEM_BF16_REL * max(1.0, scale)
-                          and bool(got.isfinite().all()),
-                          f"stem bf16 W={w}: max |kernel-plain| {err:.3e} "
-                          f"(tol {TOL_STEM_BF16_REL:g} x max(1, scale "
-                          f"{scale:.3f}))")
-        x = normalize_u8(u8, torch.bfloat16)
-        folded = fold_stem_weights(model.stem.net, torch.bfloat16)
-        ms = time_ms(torch, lambda: stem_fused(x, folded))
-        plain_ms = time_ms(torch, lambda: stem_plain(x, folded), iters=5)
-        # Yardstick: cuDNN convolutions with bias and SiLU, bf16 NCHW.
-        lib_w = []
-        for i in range(4):
-            wk, b = folded[2 * i], folded[2 * i + 1]
-            cin, cout = wk.shape[0] // 9, wk.shape[1]
-            lib_w.append((wk.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
-                          .to(torch.bfloat16).contiguous(),
-                          b.to(torch.bfloat16)))
+        folded32 = model.stem.folded(torch.float32)
+        folded16 = model.stem.folded(torch.bfloat16)
+        for w in WIDTHS:
+            x = normalize_u8(u8[:, :, :w].contiguous(), torch.float32)
+            got = stem_fused_f32(x, folded32)
+            want = stem_plain(x, folded32)
+            assert got.shape == (BATCH, 6, w // 4, folded32[-2].shape[1])
+            errs[w] = float((got - want).abs().max())
+            check(errs[w] <= TOL_STEM_F32 and bool(got.isfinite().all()),
+                  f"stem f32 W={w}: max |kernel-plain| {errs[w]:.3e} "
+                  f"(tol {TOL_STEM_F32:g}, scale "
+                  f"{float(want.abs().max()):.3f})")
+        # bf16: the width buckets at the full batch, then ragged cases (a
+        # batch that is no bucket size, widths that are no multiple of a
+        # tile).
+        cases = [(BATCH, w) for w in WIDTHS] + [(5, 52), (3, 636)]
+        for n, w in cases:
+            x = normalize_u8(u8[:n, :, :w].contiguous(), torch.bfloat16)
+            got = stem_fused(x, folded16).float()
+            want = stem_plain(x, folded16).float()
+            assert got.shape == want.shape == (n, 6, (w - 1) // 4 + 1, 256)
+            scale = float(want.abs().max())
+            errs_bf16[(n, w)] = bf16_check(got, want, scale, f"B={n} W={w}")
+            # The edges alone, so that an edge fault is named as one.
+            for name, sel in (("top row", (slice(None), 0)),
+                              ("bottom row", (slice(None), -1)),
+                              ("left column", (slice(None), slice(None), 0)),
+                              ("right column", (slice(None), slice(None), -1))):
+                bf16_check(got[sel], want[sel], scale, f"B={n} W={w} {name}")
 
-        def library():
-            h = x.unsqueeze(1)
-            for (wk, b), s in zip(lib_w, STRIDES):
-                h = F.silu(F.conv2d(h, wk, b, stride=s, padding=1))
-            return h
+        def library_convs(x, folded, dtype):
+            """Yardstick: per conv, the cuDNN convolution with bias and SiLU
+            (NCHW) on that conv's own input."""
+            convs, h = [], x.unsqueeze(1)
+            for i, s in enumerate(STRIDES):
+                wk, b = folded[2 * i], folded[2 * i + 1].to(dtype)
+                cin, cout = wk.shape[0] // 9, wk.shape[1]
+                wk = (wk.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+                      .to(dtype).contiguous())
 
-        library_ms = time_ms(torch, library)
-    # Bound at B=128, W=640: conv0 in float32, convs 1-3 in bf16.
-    h, w, cin, flops0, flops = 48, 640, 1, 0.0, 0.0
-    out_bytes = 0
-    for i, (sh, sw) in enumerate(STRIDES):
-        cout = folded[2 * i].shape[1]
-        h, w = (h - 1) // sh + 1, (w - 1) // sw + 1
-        f = 2.0 * BATCH * h * w * cout * 9 * cin
-        flops0, flops = (flops0 + f, flops) if i == 0 else (flops0, flops + f)
-        cin = cout
-        out_bytes = BATCH * h * w * cout * 2
-    in_bytes = BATCH * 48 * 640 * 2 + sum(t.numel() * t.element_size()
-                                          for t in folded)
-    ops_ms = (flops0 / PEAK_F32 + flops / PEAK_BF16) * 1e3
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
-    print(f"stem bound: {flops0 / 1e9:.2f} GFLOP f32 + {flops / 1e9:.1f} "
-          f"GFLOP bf16 -> {ops_ms:.4f} ms; {(in_bytes + out_bytes) / 1e6:.1f}"
-          f" MB -> {bytes_ms:.4f} ms", flush=True)
-    return {
-        "name": "stem_fused", "route": "cuda",
-        "source": "kiri_tpu_torch/kernels/csrc/stem_conv.cu",
-        "replaces": "kiri_tpu/kernels/stem.py:233",
-        "launches": 0, "max_abs_err": max(errs.values()),
+                def conv(h=h, wk=wk, b=b, s=s):
+                    return F.silu(F.conv2d(h, wk, b, stride=s, padding=1))
+                convs.append(conv)
+                h = conv()
+            return convs
+
+        def run_all(fns):
+            return lambda: [fn() for fn in fns]
+
+        x16 = normalize_u8(u8, torch.bfloat16)
+        lib16 = library_convs(x16, folded16, torch.bfloat16)
+        ms = time_ms(torch, lambda: stem_fused(x16, folded16))
+        plain_ms = time_ms(torch, lambda: stem_plain(x16, folded16), iters=5)
+        library_ms = time_ms(torch, run_all(lib16))
+        # Launch by launch: conv0+conv1, conv2, conv3, each on its own input.
+        convs16 = _stem_convs(folded16, BATCH, 48, 640)
+        per_launch, h = {}, x16
+        for layer, which in ((1, (0, 1)), (2, (2,)), (3, (3,))):
+            ops, byt = _bound_ms([convs16[i] for i in which], 2, PEAK_BF16)
+            per_launch["conv" + "+".join(map(str, which))] = {
+                "ms": time_ms(torch, lambda: stem_mma_layer(layer, h, folded16)),
+                "library_ms": time_ms(torch,
+                                      run_all([lib16[i] for i in which])),
+                "bound_ms": max(ops, byt)}
+            h = stem_mma_layer(layer, h, folded16)
+        del lib16, h
+        x32 = normalize_u8(u8, torch.float32)
+        lib32 = library_convs(x32, folded32, torch.float32)
+        ms32 = time_ms(torch, lambda: stem_fused_f32(x32, folded32), iters=5)
+        plain_ms32 = time_ms(torch, lambda: stem_plain(x32, folded32), iters=5)
+        library_ms32 = time_ms(torch, run_all(lib32), iters=5)
+        del lib32
+    ops_ms, bytes_ms = _bound_ms(convs16, 2, PEAK_BF16)
+    ops_ms32, bytes_ms32 = _bound_ms(_stem_convs(folded32, BATCH, 48, 640), 4,
+                                     PEAK_F32)
+    print(f"stem work: {convs16[0]['flop'] / 1e9:.2f} GFLOP conv0 + "
+          f"{sum(c['flop'] for c in convs16[1:]) / 1e9:.1f} GFLOP convs 1-3",
+          flush=True)
+    print(f"stem bf16 launch by launch (ms, cuDNN ms, bound ms): "
+          + "; ".join(f"{k} {v['ms']:.3f} {v['library_ms']:.3f} "
+                      f"{v['bound_ms']:.3f}" for k, v in per_launch.items()),
+          flush=True)
+    common = {"route": "cuda", "replaces": "kiri_tpu/kernels/stem.py:233",
+              "launches": 0}
+    return [{
+        "name": "stem_fused", **common,
+        "source": "kiri_tpu_torch/kernels/csrc/stem_mma.cu",
+        "max_abs_err": max(errs_bf16.values()),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "per_launch": per_launch,
         "shape": f"x bf16 [{BATCH},48,640] -> [{BATCH},6,160,256]",
-        "max_abs_err_bf16": max(errs_bf16.values()),
-        "tolerance": f"f32 {TOL_STEM_F32:g} (TF32 off); bf16 "
-                     f"{TOL_STEM_BF16_REL:g} x max(1, max |plain|)",
-    }
+        "tolerance": f"{TOL_STEM_BF16_REL:g} x max(1, max |plain|) and, per "
+                     f"element, {TOL_STEM_BF16_ELEM:g} x (|plain| + 1), at "
+                     f"{cases} and on the edge rows and columns alone",
+    }, {
+        "name": "stem_fused_f32", **common,
+        "source": "kiri_tpu_torch/kernels/csrc/stem_conv.cu",
+        "max_abs_err": max(errs.values()),
+        "ms": ms32, "plain_ms": plain_ms32,
+        "bound_ms": max(ops_ms32, bytes_ms32),
+        "bound_by": "operations" if ops_ms32 >= bytes_ms32 else "bytes",
+        "library_ms": library_ms32,
+        "shape": f"x f32 [{BATCH},48,640] -> [{BATCH},6,160,256]",
+        "tolerance": f"{TOL_STEM_F32:g} (TF32 off), at B={BATCH} and W in "
+                     f"{WIDTHS}",
+    }]
 
 
 def preprocess_phase(torch, np, crops):
     """Preprocess kernel vs plain on (a) the main path's input, the smoke
     crops repeated to 128 lines as ``recognize_crops`` packs them, timed;
     (b) 128 edge cases: dark, small (cubic upscale), wide (clipped) and
-    linear-flagged variants of the smoke crops."""
+    linear-flagged variants of the smoke crops; (c) extreme shapes."""
     from kiri_tpu_torch.kernels.resize import (pack_crops, preprocess_lines,
                                                preprocess_lines_plain)
 
@@ -189,27 +287,49 @@ def preprocess_phase(torch, np, crops):
             edge.append(np.ascontiguousarray(np.tile(c, (1, 3))))  # clipped
         else:
             edge.append(np.ascontiguousarray(255 - c))              # dark
+    # Extreme shapes: one row, one column, one pixel, taller than 256 px,
+    # wider than the kernel's shared-memory strip (its direct path), dark.
+    rng = np.random.default_rng(0)
+    extreme = [rng.integers(0, 256, hw, dtype=np.uint8) for hw in
+               ((1, 200), (40, 1), (1, 1), (300, 900), (400, 60), (20, 3300),
+                (257, 3100), (2, 2), (48, 640), (5, 1000))]
+    extreme += [np.ascontiguousarray(c // 3) for c in extreme[:7]]   # dark
     inputs = {}
-    for name, batch in (("main path", main), ("edge cases", edge)):
+
+    def run(name, buf, sizes3, out_h=48, out_w=640):
+        dbuf = torch.from_numpy(buf).cuda()
+        dsizes = torch.from_numpy(sizes3).cuda()
+        got = preprocess_lines(dbuf, dsizes, out_h, out_w)
+        want = preprocess_lines_plain(dbuf, dsizes, out_h, out_w)
+        err = float((got - want).abs().max())
+        nw = np.clip(np.rint(sizes3[:, 1] * out_h
+                             / np.maximum(1, sizes3[:, 0])), 1, out_w)
+        check(err <= TOL_PRE and bool(got.isfinite().all()),
+              f"preprocess ({name}): max |kernel-plain| {err:.3e} (tol "
+              f"{TOL_PRE:g}) on {len(buf)} crops in [{buf.shape[1]},"
+              f"{buf.shape[2]}] -> [{out_h},{out_w}], "
+              f"{int((sizes3[:, 0] < out_h).sum())} upscaled, "
+              f"{int((nw >= out_w).sum())} clipped, "
+              f"{int(sizes3[:, 2].sum())} linear")
+        inputs[name] = (dbuf, dsizes, sizes3, err)
+
+    for name, batch in (("main path", main), ("edge cases", edge),
+                        ("extreme shapes", extreme)):
         buf, sizes = pack_crops(batch)
         sizes3 = np.zeros((len(batch), 3), np.int32)
         sizes3[:, :2] = sizes
-        if name == "edge cases":
+        if name != "main path":
             sizes3[::4, 2] = 1                                   # linear flag
-        dbuf = torch.from_numpy(buf).cuda()
-        dsizes = torch.from_numpy(sizes3).cuda()
-        got = preprocess_lines(dbuf, dsizes, 48, 640)
-        want = preprocess_lines_plain(dbuf, dsizes, 48, 640)
-        err = float((got - want).abs().max())
-        nw = np.clip(np.rint(sizes3[:, 1] * 48
-                             / np.maximum(1, sizes3[:, 0])), 1, 640)
-        check(err <= TOL_PRE and bool(got.isfinite().all()),
-              f"preprocess ({name}): max |kernel-plain| {err:.3e} (tol "
-              f"{TOL_PRE:g}) on {len(batch)} crops in [{buf.shape[1]},"
-              f"{buf.shape[2]}], {int((sizes3[:, 0] < 48).sum())} upscaled, "
-              f"{int((nw >= 640).sum())} clipped, "
-              f"{int(sizes3[:, 2].sum())} linear")
-        inputs[name] = (dbuf, dsizes, sizes3, err)
+        run(name, buf, sizes3)
+        if name == "extreme shapes":
+            # An output no multiple of the row tile or of 4 columns, and a
+            # buffer whose rows are not 16-byte aligned, with sizes of 0.
+            run(name + ", out 20x50", buf, sizes3, 20, 50)
+            odd = np.ascontiguousarray(buf[:, :301, :1001])
+            sizes_odd = np.minimum(sizes3, [[301, 1001, 1]]).astype(np.int32)
+            sizes_odd[-1, :2] = (0, 7)
+            sizes_odd[-2, :2] = (9, 0)
+            run(name + ", unaligned rows", odd, sizes_odd)
     dbuf, dsizes, sizes3, err = inputs["main path"]
     ms = time_ms(torch, lambda: preprocess_lines(dbuf, dsizes, 48, 640))
     plain_ms = time_ms(
@@ -226,13 +346,16 @@ def preprocess_phase(torch, np, crops):
         "library_ms": None,
         "shape": f"crops u8 [{BATCH},{dbuf.shape[1]},{dbuf.shape[2]}] -> "
                  f"f32 [{BATCH},48,640]",
-        "max_abs_err_edge_cases": inputs["edge cases"][3],
+        "max_abs_err_other_inputs": {k: v[3] for k, v in inputs.items()
+                                     if k != "main path"},
         "tolerance": f"{TOL_PRE:g}",
     }
 
 
 def main_path_phase(torch, np, model, cfg, tok, d, crops):
-    """The engine's CTC paths: bf16 with counters, then f32 agreement."""
+    """The engine's CTC paths in bf16, then in float32 against kiri_tpu's
+    texts, each with the launch counters set to 0 just before it. Returns
+    each kernel's launches in the run that goes through it."""
     from kiri_tpu_torch.engine import RecognizerEngine
     from kiri_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -249,8 +372,9 @@ def main_path_phase(torch, np, model, cfg, tok, d, crops):
     counts = launch_counts()
     print(f"main path (bf16): {len(imgs)} lines x 2 paths in {dt:.3f} s "
           f"(first call, kernels built); launches {counts}", flush=True)
-    for name, n in counts.items():
-        check(n > 0, f"main path launched {name} {n} times")
+    for name in ("stem_fused", "preprocess_lines"):
+        check(counts[name] > 0,
+              f"main path (bf16) launched {name} {counts[name]} times")
     for path, res in outs.items():
         hyp = [t for t, _ in res]
         kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
@@ -273,8 +397,15 @@ def main_path_phase(torch, np, model, cfg, tok, d, crops):
 
     eng32 = RecognizerEngine(model, cfg.replace(COMPUTE_DTYPE="float32"), tok,
                              device="cuda")
-    for path, res in (("batch", eng32.recognize_batch(imgs, "ctc", widths)),
-                      ("crops", eng32.recognize_crops(crops, "ctc"))):
+    reset_launch_counts()
+    outs32 = (("batch", eng32.recognize_batch(imgs, "ctc", widths)),
+              ("crops", eng32.recognize_crops(crops, "ctc")))
+    counts32 = launch_counts()
+    for name in ("stem_fused_f32", "preprocess_lines"):
+        check(counts32[name] > 0,
+              f"main path (f32) launched {name} {counts32[name]} times")
+    counts["stem_fused_f32"] = counts32["stem_fused_f32"]
+    for path, res in outs32:
         want = [str(t) for t in d[f"{path}_texts_f32"]]
         hyp = [t for t, _ in res]
         diff = [(i, h, w) for i, (h, w) in enumerate(zip(hyp, want)) if h != w]
@@ -343,7 +474,7 @@ def main() -> int:
                         cfg)
     d, crops = load_smoke_lines()
 
-    kernels = [stem_phase(torch, np, model, d["imgs"]),
+    kernels = [*stem_phase(torch, np, model, d["imgs"]),
                preprocess_phase(torch, np, crops)]
     counts = main_path_phase(torch, np, model, cfg, tok, d, crops)
     for k in kernels:

@@ -8,9 +8,10 @@ from __future__ import annotations
 from typing import Dict
 
 from .resize import preprocess_lines
-from .stem import stem_fused
+from .stem import stem_fused, stem_fused_f32
 
-WRAPPERS = {"preprocess_lines": preprocess_lines, "stem_fused": stem_fused}
+WRAPPERS = {"preprocess_lines": preprocess_lines, "stem_fused": stem_fused,
+            "stem_fused_f32": stem_fused_f32}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,4 +1,4 @@
-// Line-crop preprocessing for the recognizer, one thread block per line.
+// Line-crop preprocessing for the recognizer, several thread blocks a line.
 //
 // Replaces the TPU kernel kiri_tpu/kernels/resize.py::preprocess_lines_tpu
 // (body _preprocess_kernel). For each line of a padded u8 [N, Hmax, Wmax]
@@ -12,21 +12,41 @@
 //
 // The TPU kernel resampled as two matmuls against dense interpolation
 // matrices, a workaround for Mosaic; here the resampling is direct and
-// separable. A triangle has at most 2 nonzero taps and the cubic at most 4,
-// so every output sample reads a 4 x 4 window through per-row and
-// per-column tap tables kept in shared memory; the zero weights of the
-// matrix form drop out, so the arithmetic is the same.
+// separable. A triangle has at most 2 nonzero taps and the cubic at most 4;
+// the zero weights of the matrix form drop out, so the arithmetic is the
+// same.
 //
-// Bound on an H100: memory. It reads each valid crop byte (twice: once for
-// the mean, once through L1/L2 for the resample) and writes 4 bytes per
-// output sample; the tap arithmetic is a few FMAs per byte.
+// Bound on an H100: memory (each valid crop byte in, 4 bytes per output
+// sample out; a few FMAs per byte), so small that latency decides. What the
+// design does about it:
+//   * a grid of (line, tile of 12 output rows): 4 blocks a line at out_h 48,
+//     512 blocks for 128 lines, which the card holds in one wave of 4-5
+//     blocks per SM instead of one block on each. The tile height matters
+//     little: a chain of dependent phases (sizes, sum, taps, row pass,
+//     column pass), not the volume of work, sets the time;
+//   * every block of a line sums the valid region itself for the invert
+//     decision, with 16-byte loads and dp4a (exact, in integers). The crop
+//     is at most a few tens of KB and comes from L2 after the first block;
+//     a flag kernel in front would cost a second launch, which is more than
+//     the repeated sum;
+//   * the row pass (<= 4 taps down the source rows a tile needs, 4 source
+//     bytes a load) writes a float strip [12][valid width] to shared memory;
+//     the column pass (<= 4 taps along the strip, through a tap table built
+//     once a block) writes float4: 8 taps an output sample, not 16;
+//   * pad columns (x >= nw) are written without touching the source.
+// A line whose valid width exceeds the strip (3072 columns) takes the
+// direct 16-tap path inside this kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kTaps = 4;
+constexpr int kTileRows = 12;       // output rows a block
+constexpr int kMaxStripCols = 3072; // 12 x 3072 floats = 144 KB
 
 __device__ __forceinline__ float resample_weight(float d, bool cubic) {
   if (cubic) {
@@ -66,85 +86,180 @@ __device__ __forceinline__ float normalize(float v) {
   return (v / 255.0f - 0.5f) / 0.5f;
 }
 
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// Dynamic shared memory: strip [kTileRows][vcap] float, col_w [out_w][4]
+// float, col_s [out_w] int. vcap is a multiple of 4.
 __global__ void __launch_bounds__(kThreads) preprocess_lines_kernel(
     const uint8_t* __restrict__ crops, const int* __restrict__ sizes,
-    float* __restrict__ out, int hmax, int wmax, int out_h, int out_w) {
-  extern __shared__ float smem[];
-  float* row_w = smem;                                   // [out_h][kTaps]
-  float* col_w = row_w + out_h * kTaps;                  // [out_w][kTaps]
-  int* row_s = reinterpret_cast<int*>(col_w + out_w * kTaps);  // [out_h]
-  int* col_s = row_s + out_h;                            // [out_w]
+    float* __restrict__ out, int hmax, int wmax, int out_h, int out_w,
+    int tiles, int vcap) {
+  extern __shared__ __align__(16) float smem[];
+  float* strip = smem;
+  float* col_w = strip + kTileRows * vcap;
+  int* col_s = reinterpret_cast<int*>(col_w + out_w * kTaps);
+  __shared__ float row_w[kTileRows][kTaps];
+  __shared__ int row_s[kTileRows];
   __shared__ unsigned long long warp_sums[kThreads / 32];
-  __shared__ int invert;
+  __shared__ int invert_flag;
 
-  const int line = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int line = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - line * tiles) * kTileRows;
+  const int nrows = min(kTileRows, out_h - r0);
   const uint8_t* img = crops + static_cast<size_t>(line) * hmax * wmax;
   const int h = sizes[line * 3 + 0];
   const int w = sizes[line * 3 + 1];
   const bool linear = sizes[line * 3 + 2] != 0;
   const int vh = min(max(h, 0), hmax);
   const int vw = min(max(w, 0), wmax);
+  const bool aligned16 =
+      wmax % 16 == 0 && (reinterpret_cast<uintptr_t>(crops) & 15) == 0;
+  const bool aligned4 =
+      wmax % 4 == 0 && (reinterpret_cast<uintptr_t>(crops) & 3) == 0;
 
   // 1. Sum of the valid region, in integers (exact).
   unsigned long long acc = 0;
-  for (int i = threadIdx.x; i < vh * vw; i += blockDim.x) {
-    const int y = i / vw;
-    acc += img[static_cast<size_t>(y) * wmax + (i - y * vw)];
+  if (aligned16) {
+    const int chunks = (vw + 15) >> 4;
+    for (int i = tid; i < vh * chunks; i += kThreads) {
+      const int y = i / chunks, c = i - y * chunks;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+          img + static_cast<size_t>(y) * wmax) + c);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+      const int rem = vw - c * 16;   // valid bytes from this chunk on, >= 1
+      unsigned s = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int nb = rem - 4 * k;
+        uint32_t word = words[k];
+        if (nb < 4) word = nb <= 0 ? 0u : word & (0xffffffffu >> (8 * (4 - nb)));
+        s = __dp4a(word, 0x01010101u, s);
+      }
+      acc += s;
+    }
+  } else {
+    for (int i = tid; i < vh * vw; i += kThreads) {
+      const int y = i / vw;
+      acc += img[static_cast<size_t>(y) * wmax + (i - y * vw)];
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = acc;
 
-  // 2. Tap tables for rows (h -> out_h) and columns (w -> nw).
+  // 2. Tap tables: this tile's rows (h -> out_h), all columns (w -> nw).
   const float hf = static_cast<float>(h);
   const float wf = static_cast<float>(w);
   const float out_hf = static_cast<float>(out_h);
   const float nw = fminf(fmaxf(
       rintf(static_cast<float>(w * out_h) / fmaxf(1.0f, hf)), 1.0f),
       static_cast<float>(out_w));
+  const int nwi = static_cast<int>(nw);
   const bool cubic_y = !linear && hf < out_hf;
   const bool cubic_x = !linear && wf < nw;
-  for (int o = threadIdx.x; o < out_h; o += blockDim.x)
-    make_taps(o, hf, out_hf, vh, cubic_y, &row_s[o], &row_w[o * kTaps]);
-  for (int o = threadIdx.x; o < out_w; o += blockDim.x)
+  if (tid < nrows)
+    make_taps(r0 + tid, hf, out_hf, vh, cubic_y, &row_s[tid], row_w[tid]);
+  for (int o = tid; o < nwi; o += kThreads)
     make_taps(o, wf, nw, vw, cubic_x, &col_s[o], &col_w[o * kTaps]);
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     unsigned long long total = 0;
     for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
     const long long count = max(1LL, static_cast<long long>(h) * w);
-    invert = static_cast<float>(total) / static_cast<float>(count) < 127.0f;
+    invert_flag =
+        static_cast<float>(total) / static_cast<float>(count) < 127.0f;
   }
   __syncthreads();
-
-  // 3. Separable resample (rows first, then columns), clamp, pad, normalize.
-  const int nwi = static_cast<int>(nw);
+  const bool invert = invert_flag != 0;
   const int ymax = max(vh - 1, 0);
   const int xmax = max(vw - 1, 0);
-  float* dst = out + static_cast<size_t>(line) * out_h * out_w;
-  for (int i = threadIdx.x; i < out_h * out_w; i += blockDim.x) {
-    const int y = i / out_w;
-    const int x = i - y * out_w;
-    float v = 128.0f;
-    if (x < nwi) {
-      float sum = 0.0f;
+  const bool empty = vh == 0 || vw == 0;   // every weight is 0: samples are 0
+  const bool use_strip = !empty && vw <= vcap;
+
+  // 3a. Row pass: strip[r][x] = sum_t row_w[r][t] * pixel(row_s[r] + t, x).
+  if (use_strip) {
+    const int groups = (vw + 3) >> 2;
+    for (int i = tid; i < nrows * groups; i += kThreads) {
+      const int r = i / groups, x = (i - r * groups) * 4;
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) {
+        const int sy = clampi(row_s[r] + t, 0, ymax);
+        const uint8_t* p = img + static_cast<size_t>(sy) * wmax + x;
+        uint32_t word;
+        if (aligned4) {
+          word = __ldg(reinterpret_cast<const uint32_t*>(p));
+        } else {
+          word = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (x + j < vw) word |= static_cast<uint32_t>(p[j]) << (8 * j);
+        }
+        if (invert) word = ~word;
+        const float wt = row_w[r][t];
+        a.x += wt * static_cast<float>(word & 0xffu);
+        a.y += wt * static_cast<float>((word >> 8) & 0xffu);
+        a.z += wt * static_cast<float>((word >> 16) & 0xffu);
+        a.w += wt * static_cast<float>(word >> 24);
+      }
+      *reinterpret_cast<float4*>(strip + r * vcap + x) = a;
+    }
+    __syncthreads();
+  }
+
+  // 3b. Column pass, clamp, pad, normalize.
+  auto sample = [&](int r, int x) -> float {
+    if (empty) return 0.0f;
+    const int s0 = col_s[x];
+    const float4 cw = *reinterpret_cast<const float4*>(col_w + x * kTaps);
+    const float wts[kTaps] = {cw.x, cw.y, cw.z, cw.w};
+    float sum = 0.0f;
+    if (use_strip) {
+      const float* row = strip + r * vcap;
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t)
+        sum += wts[t] * row[clampi(s0 + t, 0, xmax)];
+    } else {
 #pragma unroll
       for (int tx = 0; tx < kTaps; ++tx) {
-        const int sx = min(max(col_s[x] + tx, 0), xmax);
+        const int sx = clampi(s0 + tx, 0, xmax);
         float col = 0.0f;
 #pragma unroll
         for (int ty = 0; ty < kTaps; ++ty) {
-          const int sy = min(max(row_s[y] + ty, 0), ymax);
+          const int sy = clampi(row_s[r] + ty, 0, ymax);
           float p = static_cast<float>(img[static_cast<size_t>(sy) * wmax + sx]);
           if (invert) p = 255.0f - p;
-          col += row_w[y * kTaps + ty] * p;
+          col += row_w[r][ty] * p;
         }
-        sum += col_w[x * kTaps + tx] * col;
+        sum += wts[tx] * col;
       }
-      v = fminf(fmaxf(sum, 0.0f), 255.0f);
     }
-    dst[i] = normalize(v);
+    return fminf(fmaxf(sum, 0.0f), 255.0f);
+  };
+  float* dst = out + (static_cast<size_t>(line) * out_h + r0) * out_w;
+  const float pad = normalize(128.0f);
+  if (out_w % 4 == 0) {
+    const int groups = out_w >> 2;
+    for (int i = tid; i < nrows * groups; i += kThreads) {
+      const int r = i / groups, x = (i - r * groups) * 4;
+      float4 v = make_float4(pad, pad, pad, pad);
+      if (x < nwi) {
+        v.x = normalize(sample(r, x));
+        if (x + 1 < nwi) v.y = normalize(sample(r, x + 1));
+        if (x + 2 < nwi) v.z = normalize(sample(r, x + 2));
+        if (x + 3 < nwi) v.w = normalize(sample(r, x + 3));
+      }
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * out_w + x) = v;
+    }
+  } else {
+    for (int i = tid; i < nrows * out_w; i += kThreads) {
+      const int r = i / out_w, x = i - r * out_w;
+      dst[i] = x < nwi ? normalize(sample(r, x)) : pad;
+    }
   }
 }
 
@@ -153,11 +268,42 @@ __global__ void __launch_bounds__(kThreads) preprocess_lines_kernel(
 extern "C" int kiri_preprocess_lines(const void* crops, const void* sizes,
                                      void* out, int n, int hmax, int wmax,
                                      int out_h, int out_w, void* stream) {
-  const size_t smem = static_cast<size_t>(out_h + out_w)
-      * (kTaps * sizeof(float) + sizeof(int));
-  preprocess_lines_kernel<<<n, kThreads, smem,
+  const int tiles = (out_h + kTileRows - 1) / kTileRows;
+  const int vcap = min((max(wmax, 1) + 3) / 4 * 4, kMaxStripCols);
+  const size_t smem = static_cast<size_t>(kTileRows) * vcap * sizeof(float)
+      + static_cast<size_t>(out_w) * (kTaps * sizeof(float) + sizeof(int));
+  const long long blocks = static_cast<long long>(n) * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Once per device: the kernel may take all the shared memory a block can
+  // have there beside its static arrays (0: not asked yet).
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> optin_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+    err = cudaErrorInvalidDevice;
+  int optin = err == cudaSuccess ? optin_of[dev].load() : 0;
+  if (err == cudaSuccess && optin == 0) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr, preprocess_lines_kernel);
+    if (err == cudaSuccess)
+      optin -= static_cast<int>(attr.sharedSizeBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(preprocess_lines_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+    if (err == cudaSuccess) optin_of[dev].store(optin);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  preprocess_lines_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(crops), static_cast<const int*>(sizes),
-      static_cast<float*>(out), hmax, wmax, out_h, out_w);
+      static_cast<float*>(out), hmax, wmax, out_h, out_w, tiles, vcap);
   return static_cast<int>(cudaGetLastError());
 }

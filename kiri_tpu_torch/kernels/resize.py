@@ -10,7 +10,12 @@ The wrapper takes the plain version only for CPU tensors; on a CUDA tensor
 it launches the kernel or raises.
 
 Bound on an H100: memory (the valid crop bytes in, 4 bytes per output
-sample out); at 128 crops padded to 64 x 704 that is ~6 us.
+sample out); at 128 crops padded to 128 x 704 that is ~5 us, so latency
+decides. The kernel runs a block per (line, 12 output rows): each block sums
+the valid region with 16-byte loads for the invert decision, resamples
+separably (row pass into a shared-memory strip, column pass out of it) and
+stores ``float4``. Lines wider than the strip take a direct path inside the
+kernel.
 """
 from __future__ import annotations
 
@@ -22,8 +27,8 @@ import torch
 
 from . import build
 
-# Largest output width whose tap tables fit the kernel's default shared
-# memory (20 bytes per output row and column).
+# Largest output width: its column tap table (20 bytes per column) shares
+# the block's shared memory with the row-pass strip.
 MAX_OUT_W = 2048
 
 
@@ -115,6 +120,8 @@ def preprocess_lines(crops_u8: torch.Tensor, sizes: torch.Tensor,
                          "crops' device")
     if not (0 < out_h <= 256 and 0 < out_w <= MAX_OUT_W):
         raise ValueError(f"out shape ({out_h}, {out_w}) out of range")
+    if crops_u8.shape[1] * crops_u8.shape[2] >= 2 ** 31:
+        raise ValueError("a padded crop must hold fewer than 2^31 bytes")
     out = torch.empty((n, out_h, out_w), dtype=torch.float32,
                       device=crops_u8.device)
     if n == 0:

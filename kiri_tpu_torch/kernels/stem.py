@@ -2,26 +2,44 @@
 into the weights and SiLU after each; strides (1,1),(2,2),(2,2),(2,1),
 channels 1 -> 48 -> 96 -> 160 -> D.
 
-``stem_fused`` runs it through the hand-written CUDA kernel
-``csrc/stem_conv.cu`` (one launch per layer), which replaces the TPU kernel
-``kiri_tpu/kernels/stem.py::stem_fused_tpu``. ``stem_plain`` is the same
-arithmetic with ``F.conv2d``: conv0 in float32 with float32 weights, convs
-1-3 on operands rounded to the compute dtype, each layer summed in float32,
-biased, passed through SiLU and rounded once to the compute dtype. The
-wrapper takes the plain version only for CPU tensors; on a CUDA tensor it
-launches the kernel or raises.
+``stem_fused`` runs it through the hand-written CUDA kernels that replace
+the TPU kernel ``kiri_tpu/kernels/stem.py::stem_fused_tpu``:
+
+* bfloat16 on the card: ``csrc/stem_mma.cu``, three launches. Each layer is
+  an implicit GEMM on the tensor cores (``wgmma``, bf16 operands, float32
+  sums): a block stages the input patch of its rectangle of output pixels
+  in shared memory once with ``cp.async`` and reads all nine taps from it
+  (``ldmatrix`` at tap-shifted addresses, A through registers), while the
+  weights stream through a shared-memory ring that ``wgmma`` reads directly.
+  conv0 is computed inside conv1's persistent block, by warps of its own
+  beside the ones that multiply, so its output never reaches device memory.
+  ``MMA_TILES`` and ``tile_plan`` state the kernel's tiling,
+  ``pack_stem_weights`` the weight layout it reads.
+* float32 on the card: ``stem_fused_f32``, ``csrc/stem_conv.cu``, one launch
+  per layer with float32 FMAs on the CUDA cores. It is what holds the port's
+  texts to ``kiri_tpu``'s at float32.
+
+``stem_plain`` is the same arithmetic with ``F.conv2d``: conv0 in float32
+with float32 weights, convs 1-3 on operands rounded to the compute dtype,
+each layer summed in float32, biased, passed through SiLU and rounded once
+to the compute dtype. The wrappers take the plain version only for CPU
+tensors; on a CUDA tensor they launch their kernel or raise.
+
+``StemWeightCache`` folds (and packs) a stem's weights once per dtype and
+device and again only when its parameters or buffers change.
 
 Layouts are the JAX package's: [B, H, W] normalized lines in, NHWC
 [B, H/8, W/4, D] features out.
 
 Bound on an H100: operations (~1.9 GFLOP per 48 x 640 line against ~0.55 MB
 of input and output per line), i.e. ~0.3 ms at batch 128 on the bf16 tensor
-cores; the kernel runs its products on the float32 CUDA cores.
+cores; ``PERF.md`` has the measured times of both routes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import re
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,10 +48,25 @@ from . import build
 
 STRIDES = ((1, 1), (2, 2), (2, 2), (2, 1))
 BN_EPS = 1e-5
+#: Channels the bf16 kernel is compiled for: conv0 .. conv3 outputs.
+MMA_CHANNELS = (48, 96, 160, 256)
+#: Per layer of ``csrc/stem_mma.cu``: the block's rectangle of output pixels
+#: (th, tw), read from the header the kernel is compiled with.
+MMA_TILES = {int(layer): (int(th), int(tw)) for layer, th, tw in re.findall(
+    r"#define KIRI_STEM_TILE_(\d) +(\d+), *(\d+),",
+    (build.CSRC / "stem_mma_tiles.h").read_text())}
+
+
+class FoldedStem(tuple):
+    """``(w0, b0, w1, b1, w2, b2, w3, b3)`` of ``fold_stem_weights``;
+    ``packed`` holds ``pack_stem_weights`` of w1..w3 once the bf16 kernel
+    has asked for them."""
+
+    packed: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def fold_stem_weights(net: torch.nn.Sequential, dtype: torch.dtype
-                      ) -> Tuple[torch.Tensor, ...]:
+                      ) -> FoldedStem:
     """BN-fold the stem ``net`` (conv, BN, SiLU) x 4 for inference.
 
     Returns (w0, b0, w1, b1, w2, b2, w3, b3): each wi is [9*Cin, Cout] with
@@ -48,7 +81,92 @@ def fold_stem_weights(net: torch.nn.Sequential, dtype: torch.dtype
         w = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])   # [9*Cin, Cout]
         out += [w.float() if i == 0 else w.to(dtype),
                 (bn.bias - bn.running_mean * inv).float()]
-    return tuple(t.contiguous() for t in out)
+    return FoldedStem(t.contiguous() for t in out)
+
+
+def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
+    """Folded [9*Cin, Cout] weights -> the bf16 kernel's
+    [9*Cin/16, 2, Cout/8, 8, 8]: steps of 16 reduction rows (one ``wgmma``),
+    so that any run of steps, a stage of the kernel's shared-memory ring, is
+    one contiguous copy; in a step, the unswizzled K-major layout of a
+    ``wgmma`` B descriptor: 8 x 8 core matrices [channel][k] of 128
+    contiguous bytes, ordered (k half, group of 8 channels)."""
+    k, cout = w.shape
+    if k % 16 or cout % 8:
+        raise ValueError(f"[{k}, {cout}] weights do not split into steps of "
+                         f"16 rows of 8 x 8 core matrices")
+    w = w.reshape(k // 16, 2, 8, cout // 8, 8)
+    return w.permute(0, 1, 3, 4, 2).contiguous()
+
+
+def unpack_stem_weights(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_stem_weights``."""
+    steps, _, groups, _, _ = packed.shape
+    return packed.permute(0, 1, 4, 2, 3).reshape(steps * 16,
+                                                 groups * 8).contiguous()
+
+
+class Tile(NamedTuple):
+    """One block of the bf16 kernel: output pixels [oy0, oy1) x [ox0, ox1)
+    (clipped to the layer's output) and the input patch it stages, rows
+    [iy0, iy0 + ph) and columns [ix0, ix0 + pw) of the layer's input, which
+    reach one pixel past the image where the tile touches its edge."""
+    oy0: int
+    oy1: int
+    ox0: int
+    ox1: int
+    iy0: int
+    ix0: int
+    ph: int
+    pw: int
+
+
+def tile_plan(layer: int, h: int, w: int) -> List[Tile]:
+    """The blocks of layer ``layer`` (1-3) of ``csrc/stem_mma.cu`` over one
+    image whose input to that layer is ``h`` x ``w``, in launch order."""
+    th, tw = MMA_TILES[layer]
+    sh, sw = STRIDES[layer]
+    ho, wo = (h - 1) // sh + 1, (w - 1) // sw + 1
+    ph, pw = (th - 1) * sh + 3, (tw - 1) * sw + 3
+    return [Tile(oy0, min(oy0 + th, ho), ox0, min(ox0 + tw, wo),
+                 oy0 * sh - 1, ox0 * sw - 1, ph, pw)
+            for oy0 in range(0, ho, th) for ox0 in range(0, wo, tw)]
+
+
+def _stem_tensors(net: torch.nn.Sequential) -> List[torch.Tensor]:
+    out = []
+    for i in range(4):
+        conv, bn = net[3 * i], net[3 * i + 1]
+        out += [conv.weight, bn.weight, bn.bias, bn.running_mean,
+                bn.running_var]
+    return out
+
+
+class StemWeightCache:
+    """The folded weights of one stem, per (dtype, device), rebuilt when a
+    parameter or buffer of the stem was written in place
+    (``load_state_dict``) or replaced (``.to()``).
+
+    A tensor made under ``torch.inference_mode`` carries no version counter:
+    an in-place write to one, which torch allows only inside inference mode,
+    goes unseen. Replace such a tensor (``param.data = new``) instead of
+    writing into it."""
+
+    def __init__(self) -> None:
+        self._entries: Dict[Tuple[torch.dtype, torch.device],
+                            Tuple[tuple, FoldedStem]] = {}
+
+    def get(self, net: torch.nn.Sequential, dtype: torch.dtype) -> FoldedStem:
+        tensors = _stem_tensors(net)
+        state = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                      for t in tensors)
+        key = (dtype, tensors[0].device)
+        hit = self._entries.get(key)
+        if hit is None or hit[0] != state:
+            with torch.no_grad():
+                hit = (state, fold_stem_weights(net, dtype))
+            self._entries[key] = hit
+        return hit[1]
 
 
 def stem_plain(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
@@ -64,19 +182,34 @@ def stem_plain(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
     return h.permute(0, 2, 3, 1).contiguous()
 
 
-def stem_fused(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
-               ) -> torch.Tensor:
-    """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return stem_plain(x, folded)
-    if (x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16)
-            or x.device.type != "cuda"):
+def _check_folded(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]) -> None:
+    if (x.dim() != 3 or x.device.type != "cuda"
+            or x.dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError("x must be a CUDA float32/bfloat16 [B, H, W]")
+    if len(folded) != 8:
+        raise ValueError("folded must hold (w, b) of four layers")
+    cin = 1
     for i, t in enumerate(folded):
         want = (torch.float32 if i % 2 or i == 0 else x.dtype)
         if t.device != x.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"folded[{i}] must be contiguous {want} on "
                              f"{x.device}")
+        if i % 2 == 0:
+            if t.dim() != 2 or t.shape[0] != 9 * cin:
+                raise ValueError(f"conv{i // 2} weights {tuple(t.shape)} do "
+                                 f"not take {cin} input channels")
+            cin = t.shape[1]
+        elif t.shape != (cin,):
+            raise ValueError(f"conv{i // 2} bias {tuple(t.shape)} is not "
+                             f"[{cin}]")
+
+
+def stem_fused_f32(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
+                   ) -> torch.Tensor:
+    """The float32 route: ``csrc/stem_conv.cu``, one launch per layer."""
+    _check_folded(x, folded)
+    if x.dtype != torch.float32:
+        raise ValueError("stem_fused_f32 takes float32 lines")
     lib = build.load("stem_conv")
     fn = lib.kiri_stem_conv3x3_silu
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -89,19 +222,82 @@ def stem_fused(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
         for i, (sh, sw) in enumerate(STRIDES):
             w, bias = folded[2 * i], folded[2 * i + 1]
             cout = w.shape[1]
-            if w.shape[0] != 9 * cin:
-                raise ValueError(f"conv{i} weights {tuple(w.shape)} do not "
-                                 f"take {cin} input channels")
             ho, wo = (hh - 1) // sh + 1, (ww - 1) // sw + 1
             out = torch.empty((b, ho, wo, cout), dtype=x.dtype,
                               device=x.device)
             if out.numel():
                 err = fn(h.data_ptr(), w.data_ptr(), bias.data_ptr(),
                          out.data_ptr(), b, hh, ww, cin, cout, sh, sw,
-                         int(x.dtype == torch.bfloat16), int(i == 0), stream)
+                         0, int(i == 0), stream)
                 build.check(err, f"stem conv{i} launch")
-                stem_fused.launches += 1
+                stem_fused_f32.launches += 1
             h, hh, ww, cin = out, ho, wo, cout
+    return h
+
+
+stem_fused_f32.launches = 0
+
+
+def stem_mma_layer(layer: int, h: torch.Tensor, folded: FoldedStem
+                   ) -> torch.Tensor:
+    """One launch of ``csrc/stem_mma.cu``. layer 1: bf16 lines [B, H, W] ->
+    conv0 and conv1, NHWC [B, H/2, W/2, 96]; layers 2, 3: the NHWC output of
+    the layer before -> this layer's. w1..w3 are packed at the first launch
+    and kept on ``folded``. Counted in ``stem_fused.launches``."""
+    if not isinstance(folded, FoldedStem):
+        raise ValueError("folded must be a FoldedStem, which keeps the "
+                         "packed weights")
+    chans = tuple(folded[2 * i].shape[1] for i in range(4))
+    if chans != MMA_CHANNELS:
+        raise ValueError(f"the bf16 stem kernel is compiled for channels "
+                         f"{MMA_CHANNELS}, not {chans}")
+    want = 3 if layer == 1 else 4
+    if (layer not in MMA_TILES or h.dim() != want or not h.is_contiguous()
+            or h.dtype != torch.bfloat16 or h.device != folded[0].device
+            or h.device.type != "cuda"
+            or (layer > 1 and h.shape[3] != chans[layer - 1])):
+        raise ValueError(f"layer {layer} takes a contiguous CUDA bfloat16 "
+                         f"tensor of {want} dimensions")
+    if folded.packed is None:
+        folded.packed = tuple(pack_stem_weights(folded[2 * i])
+                              for i in (1, 2, 3))
+    lib = build.load("stem_mma")
+    fn = lib.kiri_stem_mma_layer
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    b, hh, ww = h.shape[:3]
+    sh, sw = STRIDES[layer]                      # conv0 keeps the size
+    ho, wo = (hh - 1) // sh + 1, (ww - 1) // sw + 1
+    out = torch.empty((b, ho, wo, chans[layer]), dtype=h.dtype,
+                      device=h.device)
+    if out.numel():
+        with torch.cuda.device(h.device):
+            err = fn(layer, h.data_ptr(), folded[0].data_ptr(),
+                     folded[1].data_ptr(),
+                     folded.packed[layer - 1].data_ptr(),
+                     folded[2 * layer + 1].data_ptr(), out.data_ptr(),
+                     b, hh, ww, torch.cuda.current_stream().cuda_stream)
+        build.check(err, f"stem mma layer {layer} launch")
+        stem_fused.launches += 1
+    return out
+
+
+def stem_fused(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]
+               ) -> torch.Tensor:
+    """The CUDA kernels on CUDA tensors (bfloat16: tensor cores, 3 launches,
+    counted here; float32: ``stem_fused_f32``), the plain version on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return stem_plain(x, folded)
+    _check_folded(x, folded)
+    if x.dtype == torch.float32:
+        return stem_fused_f32(x, folded)
+    if not isinstance(folded, FoldedStem):
+        folded = FoldedStem(folded)      # packed once for this call
+    h = x.contiguous()
+    for layer in (1, 2, 3):
+        h = stem_mma_layer(layer, h, folded)
     return h
 
 

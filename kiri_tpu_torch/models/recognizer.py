@@ -8,7 +8,7 @@ Submodule and parameter names are the checkpoint's own torch names
 ``dec_pos_enc.pe``), so ``load_state_dict(strict=True)`` takes a committed
 ``.safetensors`` file as it is. The forward math is the functions of
 ``layers.py`` over these parameters; the stem goes through
-``kernels.stem.stem_fused``.
+``kernels.stem.stem_fused`` on weights folded once (``Stem.folded``).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.stem import STRIDES, fold_stem_weights, stem_fused
+from ..kernels.stem import STRIDES, FoldedStem, StemWeightCache, stem_fused
 from ..ops.preprocess import normalize_u8
 from . import layers as L
 
@@ -35,6 +35,12 @@ class Stem(nn.Module):
                                bias=False),
                      nn.BatchNorm2d(chans[i + 1]), nn.SiLU()]
         self.net = nn.Sequential(*mods)
+        self._folded = StemWeightCache()
+
+    def folded(self, dtype: torch.dtype) -> FoldedStem:
+        """The BN-folded weights for ``dtype`` on the parameters' device,
+        folded once and again only after the parameters or buffers change."""
+        return self._folded.get(self.net, dtype)
 
 
 class Attention(nn.Module):
@@ -126,7 +132,7 @@ class Recognizer(nn.Module):
             images = images[:, 0]
         x = (normalize_u8(images, dtype) if images.dtype == torch.uint8
              else images.to(dtype))
-        feat = stem_fused(x, fold_stem_weights(self.stem.net, dtype))
+        feat = stem_fused(x, self.stem.folded(dtype))
         _, h, w, c = feat.shape
         feat = feat + _pos_enc_2d(h, w, c).to(feat.device, dtype)
         seq = feat.mean(dim=1)

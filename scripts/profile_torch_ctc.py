@@ -86,18 +86,27 @@ def main() -> int:
                                      / args.reps)
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])
+        # The port's own kernels, by the names in csrc/*.cu.
+        stem = sum(v for k, v in kernels.items()
+                   if "stem_layer_kernel" in k or "stem_conv01_kernel" in k
+                   or "conv3x3_silu_kernel" in k)
+        pre = sum(v for k, v in kernels.items()
+                  if "preprocess_lines_kernel" in k)
         report["paths"][name] = {
             "host_ms_per_call": host_ms,
             "lines_per_s": args.batch / host_ms * 1e3,
             "profiled_wall_ms_per_call": wall_ms / args.reps,
             "device_busy_ms_per_call": busy,
             "device_busy_share": busy / (wall_ms / args.reps),
+            "stem_kernels_ms_per_call": stem,
+            "preprocess_kernel_ms_per_call": pre,
             "device_ms_by_kernel": dict(top),
         }
         print(f"{name}: {host_ms:.2f} ms/call ({args.batch / host_ms * 1e3:.1f}"
               f" lines/s); device busy {busy:.2f} ms of "
               f"{wall_ms / args.reps:.2f} ms profiled "
-              f"({100 * busy / (wall_ms / args.reps):.1f}%)")
+              f"({100 * busy / (wall_ms / args.reps):.1f}%); stem kernels "
+              f"{stem:.3f} ms, preprocess kernel {pre:.3f} ms")
         for k, v in top[:8]:
             print(f"    {v:8.3f} ms  {k[:100]}")
     print(smi)

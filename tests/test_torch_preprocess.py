@@ -83,3 +83,53 @@ def test_normalize_u8_matches_kiri_tpu(dtype, jdtype):
     assert got.dtype == dtype and got.shape == x.shape
     want = np.asarray(JP.normalize_u8(jnp.asarray(x), jdtype), np.float32)
     np.testing.assert_array_equal(got.float().numpy(), want[:, 0])
+
+
+def _edge_crops():
+    """Crops of one row, one column, one pixel and two pixels a side, taller
+    than 256 px (one also wider than the CUDA kernel's 3072-column strip),
+    bright and dark."""
+    rng = np.random.default_rng(7)
+    shapes = [(1, 200), (40, 1), (1, 1), (2, 2), (300, 500), (400, 30),
+              (257, 3100)]
+    out = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
+    return out + [np.ascontiguousarray(c // 3) for c in out]
+
+
+@pytest.mark.parametrize("out_hw", [(48, 640), (20, 50)])
+@pytest.mark.parametrize("linear", [False, True])
+def test_edge_shapes_match_ref(out_hw, linear):
+    """h or w of 1, crops taller than 256 px: the port's plain version (and
+    the wrapper's CPU dispatch) against ``preprocess_lines_ref`` within
+    2e-3 normalized units (~0.26 of a u8 grey level; summation order)."""
+    crops = _edge_crops()
+    buf, sizes = pack_crops(crops)
+    lin = np.full(len(crops), linear)
+    sizes3 = np.concatenate([sizes, lin[:, None].astype(np.int32)], axis=1)
+    got = preprocess_lines(torch.from_numpy(buf), torch.from_numpy(sizes3),
+                           *out_hw).numpy()
+    assert got.shape == (len(crops),) + out_hw and np.isfinite(got).all()
+    ref = np.asarray(JR.preprocess_lines_ref(
+        jnp.asarray(buf), jnp.asarray(sizes), *out_hw,
+        linear_mask=jnp.asarray(lin)))
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+    # A 1 x 1 crop fills its nw = out_h columns with its own (inverted when
+    # dark) value and pads the rest with 128.
+    pad = (128 / 255 - 0.5) / 0.5
+    for i in (2, 9):
+        v = float(crops[i][0, 0])
+        v = 255.0 - v if v < 127 else v
+        np.testing.assert_allclose(got[i][:, : out_hw[0]],
+                                   (v / 255 - 0.5) / 0.5, atol=2e-3)
+        np.testing.assert_allclose(got[i][:, out_hw[0]:], pad, atol=1e-6)
+
+
+def test_wrapper_checks_its_arguments_on_the_cpu_too():
+    """The CPU dispatch takes what the plain version takes; padded lines of
+    size (1, 1), as ``recognize_crops`` pads a batch, come out as lines."""
+    buf = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    sizes = torch.ones((2, 3), dtype=torch.int32)
+    out = preprocess_lines(buf, sizes, 48, 640)
+    assert out.shape == (2, 48, 640) and bool(out.isfinite().all())
+    # A dark 1 x 1 crop is inverted to white: 48 columns of 1.0, then pad.
+    assert bool((out[:, :, :48] == 1.0).all())
