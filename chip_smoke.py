@@ -12,15 +12,21 @@
    main path's input, on edge cases and on extreme shapes; and times
    kernel, plain version and (for the stem, as a whole and launch by
    launch) the cuDNN convolutions as a yardstick;
-3. drives the main path — ``RecognizerEngine.recognize_batch(imgs, "ctc",
-   widths)`` and ``recognize_crops(crops, "ctc")`` with the committed
-   checkpoint over the committed smoke lines — in bfloat16 (the
-   checkpoint's dtype) and in float32, each with the launch counters set to
-   0 just before, and checks that every kernel ran, that bfloat16 reads
-   each script with CER <= 0.02, and that float32 gives the JAX package's
-   stored texts line for line;
-4. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-   and as its last line ``{"ok": true, "device": {...}}``.
+3. drives the main paths with the committed checkpoint over the committed
+   smoke lines: ``RecognizerEngine.recognize_batch(imgs, m, widths)`` for m
+   in "ctc", "decoder", "beam", "auto" (the last also under a threshold that
+   escalates 25 of the 64 lines) and ``recognize_crops(crops, m)`` for "ctc"
+   and "decoder", in bfloat16 (the checkpoint's dtype) and in float32, each
+   run with the launch counters set to 0 just before it. It checks that
+   every kernel of a run was launched in it, that bfloat16 reads each script
+   with CER <= 0.02 (0.03 for "decoder") and confidences in [0, 1], and that
+   float32 gives the JAX package's stored texts line for line and its
+   confidences within 1e-3; then "decoder" once more under
+   ``SPEC_MAX_ROUNDS=1``, which sends lines through the step-loop fallback,
+   against the JAX package's answers for that setting;
+4. prints one throughput line per method, the card's name and power limit,
+   one ``{"kernels": [...]}`` line, and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits with code 1 and prints no result line. The script
 needs the rest of the repository beside it and a CUDA device.
@@ -51,7 +57,9 @@ TOL_STEM_BF16_REL = 2.0 ** -5
 # the output scale) does not pass under the scale of the largest.
 TOL_STEM_BF16_ELEM = 2.0 ** -6
 TOL_PRE = 2e-3            # normalized units; ~0.26 of a u8 grey level
-CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" row
+CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" and "beam"
+CER_MAX_DECODER = 0.03    # ... and its "decoder" row
+TOL_CONF_F32 = 1e-3       # float32 confidences against kiri_tpu's
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
 
@@ -353,39 +361,74 @@ def preprocess_phase(torch, np, crops):
 
 
 def main_path_phase(torch, np, model, cfg, tok, d, crops):
-    """The engine's CTC paths in bf16, then in float32 against kiri_tpu's
-    texts, each with the launch counters set to 0 just before it. Returns
-    each kernel's launches in the run that goes through it."""
+    """Every path of the engine over the smoke lines, in bf16 against the
+    ground truth and in float32 against kiri_tpu's stored answers, each run
+    with the launch counters set to 0 just before it and read just after.
+    Returns each kernel's launches, in all and by run."""
     from kiri_tpu_torch.engine import RecognizerEngine
     from kiri_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     imgs, widths = d["imgs"], d["widths"]
     texts = [str(t) for t in d["texts"]]
     is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
+    total, by_run = {}, {}
+
+    def drive(name, fn, needs):
+        """Run ``fn`` with the counters at 0 and hold each kernel of
+        ``needs`` to at least one launch in it."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        by_run[name] = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        check(all(counts[k] > 0 for k in needs),
+              f"{name}: {len(res)} lines in {dt:.3f} s, launches "
+              f"{by_run[name]} (needs {', '.join(needs)})")
+        return res
+
+    def runs_of(eng, stem):
+        """(key in the fixture, CER limit, thunk, kernels it must launch)."""
+        esc = RecognizerEngine(model, eng.cfg.replace(
+            AUTO_CONF_THRESHOLD=float(d["auto_escalate_threshold"])), tok,
+            device="cuda")
+        pre = (stem, "preprocess_lines")
+        return [
+            ("batch", CER_MAX, lambda: eng.recognize_batch(
+                imgs, "ctc", widths), (stem,)),
+            ("crops", CER_MAX, lambda: eng.recognize_crops(crops, "ctc"), pre),
+            ("batch_decoder", CER_MAX_DECODER, lambda: eng.recognize_batch(
+                imgs, "decoder", widths), (stem,)),
+            ("batch_beam", CER_MAX, lambda: eng.recognize_batch(
+                imgs, "beam", widths), (stem,)),
+            ("batch_auto", CER_MAX, lambda: eng.recognize_batch(
+                imgs, "auto", widths), (stem,)),
+            ("batch_auto_escalated", CER_MAX, lambda: esc.recognize_batch(
+                imgs, "auto", widths), (stem,)),
+            ("crops_decoder", CER_MAX_DECODER, lambda: eng.recognize_crops(
+                crops, "decoder"), pre),
+        ]
+
     eng = RecognizerEngine(model, cfg.replace(COMPUTE_DTYPE="bfloat16"), tok,
                            device="cuda")
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    outs = {"batch": eng.recognize_batch(imgs, "ctc", widths),
-            "crops": eng.recognize_crops(crops, "ctc")}
-    dt = time.perf_counter() - t0
-    counts = launch_counts()
-    print(f"main path (bf16): {len(imgs)} lines x 2 paths in {dt:.3f} s "
-          f"(first call, kernels built); launches {counts}", flush=True)
-    for name in ("stem_fused", "preprocess_lines"):
-        check(counts[name] > 0,
-              f"main path (bf16) launched {name} {counts[name]} times")
-    for path, res in outs.items():
+    for key, cer_max, fn, needs in runs_of(eng, "stem_fused"):
+        res = drive(f"bf16 {key}", fn, needs)
         hyp = [t for t, _ in res]
         kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
         en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if not k])
-        agree = sum(a == str(b) for a, b in zip(hyp, d[f"{path}_texts_bf16"]))
+        agree = sum(a == str(b) for a, b in zip(hyp, d[f"{key}_texts_bf16"]))
         conf = np.asarray([c for _, c in res])
-        check(kh <= CER_MAX and en <= CER_MAX and np.isfinite(conf).all(),
-              f"bf16 {path}: Khmer CER {kh:.4f}, English CER {en:.4f} "
-              f"(max {CER_MAX}); {agree}/{len(hyp)} texts equal kiri_tpu's "
+        check(kh <= cer_max and en <= cer_max and np.isfinite(conf).all()
+              and conf.min() >= 0.0 and conf.max() <= 1.0,
+              f"bf16 {key}: Khmer CER {kh:.4f}, English CER {en:.4f} "
+              f"(max {cer_max}); confidences in [{conf.min():.3f}, "
+              f"{conf.max():.3f}]; {agree}/{len(hyp)} texts equal kiri_tpu's "
               f"bf16 texts; max |conf diff| "
-              f"{np.abs(conf - d[f'{path}_conf_bf16']).max():.2e}")
+              f"{np.abs(conf - d[f'{key}_conf_bf16']).max():.2e}")
+    print(f"bf16: {eng.fallback_rows} rows went from spec_decode to the step "
+          f"loop at SPEC_MAX_ROUNDS={cfg.SPEC_MAX_ROUNDS}", flush=True)
 
     with torch.inference_mode():
         memp, ctc, ids, conf, est, n = eng.encode_batch(imgs[:8])
@@ -395,40 +438,54 @@ def main_path_phase(torch, np, model, cfg, tok, d, crops):
           f"encode_batch: ctc {tuple(ctc.shape)}, memp {tuple(memp.shape)}, "
           "finite")
 
-    eng32 = RecognizerEngine(model, cfg.replace(COMPUTE_DTYPE="float32"), tok,
-                             device="cuda")
-    reset_launch_counts()
-    outs32 = (("batch", eng32.recognize_batch(imgs, "ctc", widths)),
-              ("crops", eng32.recognize_crops(crops, "ctc")))
-    counts32 = launch_counts()
-    for name in ("stem_fused_f32", "preprocess_lines"):
-        check(counts32[name] > 0,
-              f"main path (f32) launched {name} {counts32[name]} times")
-    counts["stem_fused_f32"] = counts32["stem_fused_f32"]
-    for path, res in outs32:
-        want = [str(t) for t in d[f"{path}_texts_f32"]]
+    def hold_f32(key, res):
+        want = [str(t) for t in d[f"{key}_texts_f32"]]
         hyp = [t for t, _ in res]
         diff = [(i, h, w) for i, (h, w) in enumerate(zip(hyp, want)) if h != w]
         dconf = np.abs(np.asarray([c for _, c in res])
-                       - d[f"{path}_conf_f32"]).max()
-        check(not diff, f"f32 {path}: {len(hyp) - len(diff)}/{len(hyp)} texts "
-              f"equal kiri_tpu's f32 texts (max |conf diff| {dconf:.2e})"
+                       - d[f"{key}_conf_f32"]).max()
+        check(not diff and dconf <= TOL_CONF_F32,
+              f"f32 {key}: {len(hyp) - len(diff)}/{len(hyp)} texts equal "
+              f"kiri_tpu's f32 texts, max |conf diff| {dconf:.2e} (tol "
+              f"{TOL_CONF_F32:g})"
               + (f"; first differences {diff[:3]}" if diff else ""))
+        return hyp
+
+    cfg32 = cfg.replace(COMPUTE_DTYPE="float32")
+    eng32 = RecognizerEngine(model, cfg32, tok, device="cuda")
+    hyp32 = {key: hold_f32(key, drive(f"f32 {key}", fn, needs))
+             for key, _, fn, needs in runs_of(eng32, "stem_fused_f32")}
+    # The fallback: one round only, so every line whose draft needs more than
+    # one correction is decoded again by the step loop.
+    eng1 = RecognizerEngine(model, cfg32.replace(SPEC_MAX_ROUNDS=1), tok,
+                            device="cuda")
+    hyp1 = hold_f32("batch_decoder_rounds1", drive(
+        "f32 batch_decoder, SPEC_MAX_ROUNDS=1",
+        lambda: eng1.recognize_batch(imgs, "decoder", widths),
+        ("stem_fused_f32",)))
+    same = sum(a == b for a, b in zip(hyp1, hyp32["batch_decoder"]))
+    check(eng1.fallback_rows > 0,
+          f"f32 fallback: {eng1.fallback_rows} of {len(imgs)} rows went "
+          f"through the step loop at SPEC_MAX_ROUNDS=1 "
+          f"({eng32.fallback_rows} over all runs at "
+          f"{cfg.SPEC_MAX_ROUNDS}); {same}/{len(imgs)} texts equal the "
+          f"drafted loop's")
 
     # Throughput at batch 128 (the smoke lines twice), width-bucketed.
     idx = np.arange(BATCH) % len(imgs)
     big, bw = imgs[idx], widths[idx]
-    for _ in range(2):
-        eng.recognize_batch(big, "ctc", bw)
-    reps = 10
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        eng.recognize_batch(big, "ctc", bw)
-    dt = (time.perf_counter() - t0) / reps
-    print(f"throughput (bf16, batch {BATCH}, width-bucketed, host clock, "
-          f"texts fetched): {BATCH / dt:.1f} lines/s ({dt * 1e3:.2f} ms per "
-          f"call)", flush=True)
-    return counts
+    for method, reps in (("ctc", 10), ("decoder", 5), ("beam", 3),
+                         ("auto", 5)):
+        for _ in range(2):
+            eng.recognize_batch(big, method, bw)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng.recognize_batch(big, method, bw)
+        dt = (time.perf_counter() - t0) / reps
+        print(f"throughput {method} (bf16, batch {BATCH}, width-bucketed, "
+              f"host clock, texts fetched): {BATCH / dt:.1f} lines/s "
+              f"({dt * 1e3:.2f} ms per call)", flush=True)
+    return total, by_run
 
 
 def main() -> int:
@@ -476,9 +533,11 @@ def main() -> int:
 
     kernels = [*stem_phase(torch, np, model, d["imgs"]),
                preprocess_phase(torch, np, crops)]
-    counts = main_path_phase(torch, np, model, cfg, tok, d, crops)
+    counts, by_run = main_path_phase(torch, np, model, cfg, tok, d, crops)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()
+                                if k["name"] in c}
 
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

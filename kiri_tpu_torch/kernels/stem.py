@@ -39,11 +39,12 @@ from __future__ import annotations
 
 import ctypes
 import re
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..weight_cache import WeightCache
 from . import build
 
 STRIDES = ((1, 1), (2, 2), (2, 2), (2, 1))
@@ -142,31 +143,13 @@ def _stem_tensors(net: torch.nn.Sequential) -> List[torch.Tensor]:
     return out
 
 
-class StemWeightCache:
+class StemWeightCache(WeightCache):
     """The folded weights of one stem, per (dtype, device), rebuilt when a
-    parameter or buffer of the stem was written in place
-    (``load_state_dict``) or replaced (``.to()``).
-
-    A tensor made under ``torch.inference_mode`` carries no version counter:
-    an in-place write to one, which torch allows only inside inference mode,
-    goes unseen. Replace such a tensor (``param.data = new``) instead of
-    writing into it."""
-
-    def __init__(self) -> None:
-        self._entries: Dict[Tuple[torch.dtype, torch.device],
-                            Tuple[tuple, FoldedStem]] = {}
+    parameter or buffer of the stem changes (see ``WeightCache``)."""
 
     def get(self, net: torch.nn.Sequential, dtype: torch.dtype) -> FoldedStem:
-        tensors = _stem_tensors(net)
-        state = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
-                      for t in tensors)
-        key = (dtype, tensors[0].device)
-        hit = self._entries.get(key)
-        if hit is None or hit[0] != state:
-            with torch.no_grad():
-                hit = (state, fold_stem_weights(net, dtype))
-            self._entries[key] = hit
-        return hit[1]
+        return self.lookup(_stem_tensors(net), dtype,
+                           lambda: fold_stem_weights(net, dtype))
 
 
 def stem_plain(x: torch.Tensor, folded: Tuple[torch.Tensor, ...]

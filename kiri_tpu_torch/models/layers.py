@@ -7,12 +7,15 @@ q/k/v thirds). The numerics follow the JAX package: matmuls run in the
 compute dtype of the activations, LayerNorm and softmax in float32, attention
 scores and the attention-weighted sum accumulate in float32, GELU is exact.
 Attention is written out as matmul -> softmax -> matmul, as the JAX package
-writes it.
+writes it. The decoder has a whole-sequence layer (``decoder_layer``) and a
+one-position layer over a K/V cache (``decoder_step_layer``), where the step
+counter is a host integer: the cache is written in place at it and read up
+to it.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,21 +24,17 @@ import torch.nn.functional as F
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T (+ bias) in x's dtype; the bias is added in float32."""
-    y = F.linear(x, weight.to(x.dtype))
-    if bias is not None:
-        y = (y.float() + bias.float()).to(x.dtype)
-    return y
+    """x @ weight.T (+ bias) in x's dtype. A bias of x's dtype goes into the
+    matmul (one launch); a float32 bias under a bf16 x is added in float32."""
+    if bias is None or bias.dtype == x.dtype:
+        return F.linear(x, weight.to(x.dtype), bias)
+    return (F.linear(x, weight.to(x.dtype)).float() + bias).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in float32, output back in x's dtype."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight + bias).to(x.dtype)
+    return F.layer_norm(x.float(), x.shape[-1:], weight, bias, eps).to(x.dtype)
 
 
 def mha(q_in: torch.Tensor, kv_in: torch.Tensor, in_proj_weight: torch.Tensor,
@@ -76,6 +75,101 @@ def encoder_layer(layer, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     x = x + mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
                 a.out_proj.bias, n_heads)
     h = layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+    return x + ffn(h, layer.linear1.weight, layer.linear1.bias,
+                   layer.linear2.weight, layer.linear2.bias)
+
+
+def decoder_layer(layer, x: torch.Tensor, mem: torch.Tensor, n_heads: int,
+                  causal_mask: torch.Tensor) -> torch.Tensor:
+    """Pre-norm decoder layer over a whole sequence: self-attention under
+    ``causal_mask`` -> cross-attention over ``mem`` -> FFN (a ``DecoderLayer``
+    module's parameters, torch ``TransformerDecoderLayer(norm_first=True)``
+    names)."""
+    a, c = layer.self_attn, layer.multihead_attn
+    h = layer_norm(x, layer.norm1.weight, layer.norm1.bias)
+    x = x + mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+                a.out_proj.bias, n_heads, mask=causal_mask)
+    h = layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+    x = x + mha(h, mem, c.in_proj_weight, c.in_proj_bias, c.out_proj.weight,
+                c.out_proj.bias, n_heads)
+    h = layer_norm(x, layer.norm3.weight, layer.norm3.bias)
+    return x + ffn(h, layer.linear1.weight, layer.linear1.bias,
+                   layer.linear2.weight, layer.linear2.bias)
+
+
+# --------------------------------------------------------------------------
+# KV-cached decoder step
+# --------------------------------------------------------------------------
+def precompute_cross_kv(layer, mem: torch.Tensor, n_heads: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the memory [N, T, D] to one layer's cross-attention K and V,
+    once per line: each [N, heads, T, hd], computed in ``mem``'s dtype and
+    then held in float32, the type the step's attention products run in."""
+    n, t, d = mem.shape
+    c = layer.multihead_attn
+    _, wk, wv = c.in_proj_weight.split(d)
+    _, bk, bv = c.in_proj_bias.split(d)
+
+    def heads(x):
+        return x.view(n, t, n_heads, d // n_heads).transpose(1, 2).float()
+    return heads(dense(mem, wk, bk)), heads(dense(mem, wv, bv))
+
+
+def init_self_cache(n_layers: int, batch: int, max_len: int, n_heads: int,
+                    head_dim: int, dtype: torch.dtype, device
+                    ) -> torch.Tensor:
+    """Self-attention K/V cache as one tensor [L, B, Tmax, 2, H, hd]
+    (slot 0 = K, slot 1 = V), so that a beam step reorders it by parent in
+    one gather."""
+    return torch.zeros((n_layers, batch, max_len, 2, n_heads, head_dim),
+                       dtype=dtype, device=device)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd)) v over float32 [.., Tq, hd] x [.., Tk, hd],
+    with the weights and the result rounded to ``dtype`` as ``mha`` does."""
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    attn = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.matmul(attn.float(), v).to(dtype)
+
+
+def decoder_step_layer(layer, x: torch.Tensor, layer_idx: int,
+                       cache: torch.Tensor, pos: int, cross_k: torch.Tensor,
+                       cross_v: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """One decoder layer for one new position, with the K/V cache.
+
+    x [B, 1, D] activations of the current token; ``pos`` is the host's step
+    counter: this step's K/V are written in place at ``cache[layer_idx, :,
+    pos]`` and attention runs over the slice ``[:pos + 1]``, so no mask is
+    needed and no slot that was never written is read. ``cross_k``/``cross_v``
+    are ``precompute_cross_kv``'s [N, H, T, hd] with B = N * K: the K beams
+    of a line are consecutive rows and share the line's memory K/V, which is
+    read once per line and not once per beam. Returns the new x.
+    """
+    b, _, d = x.shape
+    hd = d // n_heads
+    a, c = layer.self_attn, layer.multihead_attn
+
+    h = layer_norm(x, layer.norm1.weight, layer.norm1.bias)
+    qkv = dense(h, a.in_proj_weight, a.in_proj_bias)       # fused, [B, 1, 3D]
+    # k and v lie side by side in qkv, in the cache's (2, H, hd) order.
+    cache[layer_idx, :, pos] = qkv[:, 0, d:].view(b, 2, n_heads, hd)
+    kv = cache[layer_idx, :, :pos + 1].float()             # [B, t, 2, H, hd]
+    q = qkv[:, 0, :d].view(b, n_heads, hd)
+    sa = _attend(q.float().unsqueeze(2), kv[:, :, 0].transpose(1, 2),
+                 kv[:, :, 1].transpose(1, 2), x.dtype)     # [B, H, 1, hd]
+    x = x + dense(sa.reshape(b, 1, d), a.out_proj.weight, a.out_proj.bias)
+
+    h = layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+    n = cross_k.shape[0]
+    q = dense(h, c.in_proj_weight[:d], c.in_proj_bias[:d])
+    q = q.view(n, b // n, n_heads, hd).transpose(1, 2)     # [N, H, K, hd]
+    ca = _attend(q.float(), cross_k, cross_v, x.dtype)     # [N, H, K, hd]
+    x = x + dense(ca.transpose(1, 2).reshape(b, 1, d), c.out_proj.weight,
+                  c.out_proj.bias)
+
+    h = layer_norm(x, layer.norm3.weight, layer.norm3.bias)
     return x + ffn(h, layer.linear1.weight, layer.linear1.bias,
                    layer.linear2.weight, layer.linear2.bias)
 

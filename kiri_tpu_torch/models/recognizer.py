@@ -1,5 +1,5 @@
 """The recognizer as an ``nn.Module``: CNN stem + Transformer encoder + CTC
-head, with the decoder's parameters held for the decode paths (the port of
+head + Transformer decoder with its two output heads (the port of
 ``kiri_tpu/models/recognizer.py``, inference only).
 
 Submodule and parameter names are the checkpoint's own torch names
@@ -8,18 +8,22 @@ Submodule and parameter names are the checkpoint's own torch names
 ``dec_pos_enc.pe``), so ``load_state_dict(strict=True)`` takes a committed
 ``.safetensors`` file as it is. The forward math is the functions of
 ``layers.py`` over these parameters; the stem goes through
-``kernels.stem.stem_fused`` on weights folded once (``Stem.folded``).
+``kernels.stem.stem_fused`` on weights folded once (``Stem.folded``), and the
+decoder runs on ``Recognizer.decoder_weights``: its matrices cast to the
+compute dtype and the two output heads fused, once per (dtype, device).
 """
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
+from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..kernels.stem import STRIDES, FoldedStem, StemWeightCache, stem_fused
 from ..ops.preprocess import normalize_u8
+from ..weight_cache import WeightCache
 from . import layers as L
 
 STEM_CHANNELS = (48, 96, 160)   # the last block goes to ENC_DIM
@@ -89,6 +93,28 @@ class PositionTable(nn.Module):
             "pe", torch.from_numpy(L.sinusoid_table(length, dim))[None])
 
 
+def _cast_tree(module: nn.Module, dtype: torch.dtype) -> SimpleNamespace:
+    """A module's parameters under their own names, cast to ``dtype``: the
+    matrices, and the biases that ``layers.dense`` then adds inside its
+    matmul. LayerNorm's parameters stay float32, the type it runs in."""
+    out = SimpleNamespace()
+    keep = isinstance(module, nn.LayerNorm)
+    for name, p in module.named_parameters(recurse=False):
+        setattr(out, name, p.detach() if keep else p.detach().to(dtype))
+    for name, child in module.named_children():
+        setattr(out, name, _cast_tree(child, dtype))
+    return out
+
+
+class DecoderWeights(SimpleNamespace):
+    """What the decoder runs on, made by ``Recognizer.decoder_weights``:
+    ``emb`` [V, D] and ``pe`` [MAX_DEC_LEN + 10, D] (or None) in the compute
+    dtype, ``layers`` (``_cast_tree`` of each decoder layer), ``dec_ln``, and
+    the output heads as one linear ``head_w`` [V or 2V, D], ``head_b``: the
+    decoder head's rows first, then the LM head's where the model has one
+    and ``cfg.USE_LM`` is set."""
+
+
 @functools.lru_cache(maxsize=16)
 def _pos_enc_2d(h: int, w: int, c: int) -> torch.Tensor:
     return torch.from_numpy(L.pos_enc_2d(h, w, c))
@@ -102,6 +128,10 @@ class Recognizer(nn.Module):
         super().__init__()
         d, dd = cfg.ENC_DIM, cfg.DEC_DIM
         self.enc_heads = cfg.ENC_HEADS
+        self.dec_heads = cfg.DEC_HEADS
+        self.use_lm = bool(cfg.USE_LM)
+        self.max_dec_len = cfg.MAX_DEC_LEN
+        self._decoder_weights = WeightCache()
         self.stem = Stem(d)
         self.enc_ln_in = nn.LayerNorm(d)
         self.enc = Stack(EncoderLayer(d, cfg.ENC_FF)
@@ -149,3 +179,93 @@ class Recognizer(nn.Module):
 
     def mem_project(self, mem: torch.Tensor) -> torch.Tensor:
         return L.dense(mem, self.mem_proj.weight)
+
+    # ----------------------------------------------------------- decoder
+    def decoder_weights(self, dtype: torch.dtype) -> DecoderWeights:
+        """The decoder's weights for ``dtype`` on the parameters' device,
+        built once and again only after a parameter changes."""
+        mods = [self.dec_emb, self.dec, self.dec_ln, self.dec_head]
+        has_lm = self.use_lm and hasattr(self, "lm_head")
+        if has_lm:
+            mods.append(self.lm_head)
+        tensors = [p for m in mods for p in m.parameters()]
+
+        def build() -> DecoderWeights:
+            heads = [self.dec_head] + ([self.lm_head] if has_lm else [])
+            pe = None
+            if hasattr(self, "dec_pos_enc"):
+                pe = torch.from_numpy(L.sinusoid_table(
+                    self.max_dec_len + 10, self.dec_emb.weight.shape[1])
+                ).to(tensors[0].device, dtype)
+            return DecoderWeights(
+                emb=self.dec_emb.weight.detach().to(dtype), pe=pe,
+                layers=[_cast_tree(m, dtype) for m in self.dec.layers],
+                dec_ln=self.dec_ln,
+                head_w=torch.cat([h.weight.detach() for h in heads]).to(dtype),
+                head_b=torch.cat([h.bias.detach() for h in heads]).to(dtype),
+                vocab=self.dec_head.weight.shape[0], has_lm=has_lm)
+        return self._decoder_weights.lookup(tensors, dtype, build)
+
+    def _heads(self, w: DecoderWeights, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """dec_ln -> fused output heads: float32 (dec_logits, lm_logits or
+        None) over the last axis of x."""
+        x = L.layer_norm(x, w.dec_ln.weight, w.dec_ln.bias)
+        both = L.dense(x, w.head_w, w.head_b).float()
+        if w.has_lm:
+            return both[..., :w.vocab], both[..., w.vocab:]
+        return both, None
+
+    def decoder_forward_heads(self, mem_proj: torch.Tensor,
+                              tgt_ids: torch.Tensor
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One teacher-forced pass over whole sequences, both output heads.
+
+        mem_proj [B, T, D] in the compute dtype, tgt_ids [B, L] decoder ids
+        (bos first) -> (dec_logits [B, L, V], lm_logits [B, L, V] or None),
+        float32: the next-token logits at every position.
+        """
+        dtype = mem_proj.dtype
+        w = self.decoder_weights(dtype)
+        lt = tgt_ids.shape[1]
+        x = w.emb[tgt_ids.long()]
+        if w.pe is not None:
+            x = x + w.pe[:lt]
+        causal = torch.ones((lt, lt), dtype=torch.bool,
+                            device=x.device).triu(1)
+        for layer in w.layers:
+            x = L.decoder_layer(layer, x, mem_proj, self.dec_heads, causal)
+        return self._heads(w, x)
+
+    def decode_prepare(self, mem_proj: torch.Tensor
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each decoder layer's cross-attention K/V of the memory, computed
+        once per line before the step loop."""
+        w = self.decoder_weights(mem_proj.dtype)
+        return [L.precompute_cross_kv(layer, mem_proj, self.dec_heads)
+                for layer in w.layers]
+
+    def init_decode_cache(self, batch: int, max_len: int, dtype: torch.dtype
+                          ) -> torch.Tensor:
+        d = self.dec_emb.weight.shape[1]
+        return L.init_self_cache(len(self.dec.layers), batch, max_len,
+                                 self.dec_heads, d // self.dec_heads, dtype,
+                                 self.dec_emb.weight.device)
+
+    def decoder_step(self, tok_ids: torch.Tensor, pos: int,
+                     cache: torch.Tensor, cross_kvs
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One autoregressive step: tok_ids [B] at position ``pos`` (the
+        host's step counter) -> float32 (dec_logits [B, V], lm_logits [B, V]
+        or None). ``cache`` (``init_decode_cache``) is written in place at
+        ``pos``; ``cross_kvs`` is ``decode_prepare``'s, of B rows or of B / K
+        rows shared by the K consecutive beams of each line."""
+        w = self.decoder_weights(cache.dtype)
+        x = w.emb[tok_ids.long()][:, None]
+        if w.pe is not None:
+            x = x + w.pe[pos]
+        for i, layer in enumerate(w.layers):
+            ck, cv = cross_kvs[i]
+            x = L.decoder_step_layer(layer, x, i, cache, pos, ck, cv,
+                                     self.dec_heads)
+        return self._heads(w, x[:, 0])

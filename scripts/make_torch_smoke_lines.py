@@ -16,7 +16,27 @@ writes ``kiri_tpu_torch/assets/smoke_lines.npz`` with 64 bilingual lines
 * ``texts``: the ground truth;
 * ``{batch,crops}_{texts,conf}_{f32,bf16}``: ``kiri_tpu``'s CTC answers for
   ``recognize_batch(imgs, "ctc", widths)`` and ``recognize_crops(crops,
-  "ctc")`` with the committed checkpoint, at float32 and bfloat16 on the CPU.
+  "ctc")`` with the committed checkpoint, at float32 and bfloat16 on the CPU;
+* ``batch_{decoder,beam,auto}_{texts,conf}_{f32,bf16}`` and
+  ``crops_decoder_{texts,conf}_{f32,bf16}``: its answers for the decoder
+  paths, ``recognize_batch(imgs, m, widths)`` and ``recognize_crops(crops,
+  "decoder")``;
+* ``batch_decoder_rounds1_{texts,conf}_f32``: ``"decoder"`` under
+  ``SPEC_MAX_ROUNDS=1``, where every line whose draft needs a correction is
+  decoded again by the step loop;
+* ``batch_auto_escalated_{texts,conf}_{f32,bf16}``: the committed
+  checkpoint reads every smoke line with a CTC confidence above
+  ``AUTO_CONF_THRESHOLD``, so ``"auto"`` escalates none of them; this is
+  ``"auto"`` under ``AUTO_CONF_THRESHOLD = auto_escalate_threshold``
+  (0.98505, which 25 of the 64 lines fall below, the nearest one 5e-4 away);
+* ``auto_margin_{f32,bf16}``: the smallest ``|conf - AUTO_CONF_THRESHOLD|``
+  over the lines. ``"auto"`` branches on that comparison, so the script fails
+  if a line lies within 1e-3 of the threshold, where a last-digit difference
+  between two implementations could send it the other way.
+
+The arrays the file already holds are kept as they are: the script fails if a
+regenerated one differs from the committed one. After a change of the
+renderer or the checkpoint, delete the file first.
 """
 from __future__ import annotations
 
@@ -34,6 +54,9 @@ N_LINES = 64
 SEED = 20261016
 HEIGHTS = (32, 40, 48, 56, 72)
 OUT = REPO / "kiri_tpu_torch" / "assets" / "smoke_lines.npz"
+AUTO_MARGIN_MIN = 1e-3
+AUTO_ESCALATE_THRESHOLD = 0.98505
+AUTO_ESCALATE_MARGIN_MIN = 2e-4
 
 
 def main() -> None:
@@ -89,6 +112,47 @@ def main() -> None:
             out[f"{path}_texts_{tag}"] = np.asarray([t for t, _ in res])
             out[f"{path}_conf_{tag}"] = np.asarray([c for _, c in res],
                                                    np.float32)
+        runs = [(f"batch_{m}", engine.recognize_batch(imgs, m, widths=widths))
+                for m in ("decoder", "beam", "auto")]
+        runs.append(("crops_decoder", engine.recognize_crops(crops,
+                                                             "decoder")))
+        eng_esc = RecognizerEngine(
+            variables,
+            engine.cfg.replace(AUTO_CONF_THRESHOLD=AUTO_ESCALATE_THRESHOLD),
+            tok)
+        runs.append(("batch_auto_escalated",
+                     eng_esc.recognize_batch(imgs, "auto", widths=widths)))
+        if tag == "f32":
+            eng1 = RecognizerEngine(
+                variables, engine.cfg.replace(SPEC_MAX_ROUNDS=1), tok)
+            runs.append(("batch_decoder_rounds1",
+                         eng1.recognize_batch(imgs, "decoder", widths=widths)))
+        for name, res in runs:
+            out[f"{name}_texts_{tag}"] = np.asarray([t for t, _ in res])
+            out[f"{name}_conf_{tag}"] = np.asarray([c for _, c in res],
+                                                   np.float32)
+        margin = float(np.abs(out[f"batch_conf_{tag}"]
+                              - cfg.AUTO_CONF_THRESHOLD).min())
+        out[f"auto_margin_{tag}"] = np.asarray(margin, np.float32)
+        if margin < AUTO_MARGIN_MIN:
+            raise SystemExit(
+                f"{tag}: a line's CTC confidence lies {margin:.2e} from "
+                f"AUTO_CONF_THRESHOLD; pick another seed")
+        esc_margin = float(np.abs(out[f"batch_conf_{tag}"]
+                                  - AUTO_ESCALATE_THRESHOLD).min())
+        if esc_margin < AUTO_ESCALATE_MARGIN_MIN:
+            raise SystemExit(
+                f"{tag}: a line's CTC confidence lies {esc_margin:.2e} from "
+                f"AUTO_ESCALATE_THRESHOLD; pick another threshold")
+    out["auto_escalate_threshold"] = np.asarray(AUTO_ESCALATE_THRESHOLD,
+                                                np.float64)
+    if OUT.exists():
+        with np.load(OUT) as old:
+            changed = [k for k in old.files
+                       if k in out and not np.array_equal(old[k], out[k])]
+        if changed:
+            raise SystemExit(f"regenerated arrays differ from the committed "
+                             f"fixture: {changed}")
     OUT.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(OUT, **out)
     n_kh = sum(any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts)
@@ -97,9 +161,14 @@ def main() -> None:
           f", max crop width {max(c.shape[1] for c in crops)}, "
           f"clipped {int((widths >= cfg.IMG_W).sum())}")
     for tag in ("f32", "bf16"):
-        for path in ("batch", "crops"):
-            hyp = out[f"{path}_texts_{tag}"]
-            print(tag, path, "exact", sum(a == b for a, b in zip(hyp, texts)))
+        print(tag, "auto margin", float(out[f"auto_margin_{tag}"]),
+              "escalated", int((out[f"batch_conf_{tag}"]
+                                < cfg.AUTO_CONF_THRESHOLD).sum()),
+              "and under the raised threshold",
+              int((out[f"batch_conf_{tag}"] < AUTO_ESCALATE_THRESHOLD).sum()))
+        for key in sorted(k for k in out if k.endswith(f"_texts_{tag}")):
+            print(tag, key, "exact",
+                  sum(a == b for a, b in zip(out[key], texts)))
 
 
 if __name__ == "__main__":

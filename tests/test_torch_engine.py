@@ -1,11 +1,16 @@
-"""kiri_tpu_torch's RecognizerEngine (CTC fast path) on the CPU against
-kiri_tpu's engine and the committed smoke lines, at float32."""
+"""kiri_tpu_torch's RecognizerEngine on the CPU at float32: every method on
+the committed checkpoint against kiri_tpu's answers stored with the smoke
+lines (texts equal, confidences within 1e-4), the CTC path also against
+kiri_tpu's engine live. tests/test_torch_engine_small.py holds every
+method, the step-loop fallback and 4-bit uploads against kiri_tpu's engine
+live on a small random model."""
 from __future__ import annotations
 
 from pathlib import Path
 
 import numpy as np
 import pytest
+from test_torch_decoder_layers import few_torch_threads  # noqa: F401
 
 from kiri_tpu.engine import RecognizerEngine as JEngine
 from kiri_tpu.tokenizer import CharTokenizer as JTok
@@ -84,14 +89,85 @@ def test_empty_and_encode_batch(engine, smoke):
 
 def test_later_slices_raise(engine, smoke):
     d, crops = smoke
-    for method in ("decoder", "beam", "auto"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            engine.recognize_batch(d["imgs"][:2], method)
     with pytest.raises(NotImplementedError, match="later slice"):
         engine.recognize_crops(crops[:2], "ctc", enhance=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RecognizerEngine(engine.model, engine.cfg, engine.tok, device="cpu",
-                         upload_bits=4)
+    spec_beam = RecognizerEngine(engine.model,
+                                 engine.cfg.replace(SPEC_BEAM=True),
+                                 engine.tok, device="cpu")
+    with pytest.raises(NotImplementedError, match="beam_device_spec"):
+        spec_beam.recognize_batch(d["imgs"][:2], "beam")
+    with pytest.raises(NotImplementedError, match="beam_device_spec"):
+        spec_beam.recognize_crops(crops[:2], "beam")
+    assert len(spec_beam.recognize_batch(d["imgs"][:2], "ctc")) == 2
+    with pytest.raises(ValueError, match="method"):
+        engine.recognize_batch(d["imgs"][:2], "greedy")
     with pytest.raises(ValueError):
         RecognizerEngine(engine.model, engine.cfg, engine.tok, device="cpu",
                          upload_bits=3)
+
+
+# ------------------------------------------ decoder paths, the checkpoint
+def _check_stored(res, d, key):
+    assert [t for t, _ in res] == [str(t) for t in d[f"{key}_texts_f32"]]
+    np.testing.assert_allclose([c for _, c in res], d[f"{key}_conf_f32"],
+                               atol=1e-4)
+    assert all(isinstance(c, float) and 0.0 <= c <= 1.0 for _, c in res)
+
+
+@pytest.mark.parametrize("method", ["decoder", "beam", "auto"])
+def test_decoder_paths_match_stored_kiri_tpu_answers(engine, smoke, method):
+    d, _ = smoke
+    _check_stored(engine.recognize_batch(d["imgs"], method, d["widths"]), d,
+                  f"batch_{method}")
+
+
+def test_crops_decoder_matches_stored_kiri_tpu_answers(engine, smoke):
+    d, crops = smoke
+    _check_stored(engine.recognize_crops(crops, "decoder"), d, "crops_decoder")
+
+
+def test_auto_escalates_low_confidence_rows(engine, smoke):
+    """Under the fixture's raised threshold 25 of the 64 lines go to beam
+    search and the others keep their CTC result."""
+    d, _ = smoke
+    thr = float(d["auto_escalate_threshold"])
+    assert float(d["auto_margin_f32"]) >= 1e-3
+    low = d["batch_conf_f32"] < thr
+    assert 0 < low.sum() < len(low)
+    eng = RecognizerEngine(engine.model,
+                           engine.cfg.replace(AUTO_CONF_THRESHOLD=thr),
+                           engine.tok, device="cpu")
+    res = eng.recognize_batch(d["imgs"], "auto", d["widths"])
+    _check_stored(res, d, "batch_auto_escalated")
+    for (text, conf), is_low, ctc, beam in zip(
+            res, low, zip(d["batch_texts_f32"], d["batch_conf_f32"]),
+            zip(d["batch_beam_texts_f32"], d["batch_beam_conf_f32"])):
+        want = beam if is_low else ctc
+        assert text == str(want[0]) and abs(conf - want[1]) < 1e-4
+
+
+def test_round_budget_sends_rows_through_the_step_loop(engine, smoke):
+    """SPEC_MAX_ROUNDS=1: lines whose draft needs more than one correction
+    are decoded again by the step loop and read as kiri_tpu reads them. (At
+    the default budget of 8 rounds one smoke line takes that way too.)"""
+    d, _ = smoke
+    eng = RecognizerEngine(engine.model,
+                           engine.cfg.replace(SPEC_MAX_ROUNDS=1), engine.tok,
+                           device="cpu")
+    _check_stored(eng.recognize_batch(d["imgs"], "decoder", d["widths"]), d,
+                  "batch_decoder_rounds1")
+    assert eng.fallback_rows >= 2
+
+
+@pytest.mark.parametrize("method", ["ctc", "decoder", "beam", "auto"])
+def test_batch_of_three_reads_as_in_a_batch_of_eight(engine, smoke, method):
+    """3 is no batch bucket: the batch is padded to 4, and the padding rows
+    neither show nor change the others."""
+    d, _ = smoke
+    imgs = d["imgs"][16:24]
+    three = engine.recognize_batch(imgs[:3], method)
+    eight = engine.recognize_batch(imgs, method)
+    assert len(three) == 3 and len(eight) == 8
+    assert [t for t, _ in three] == [t for t, _ in eight[:3]]
+    np.testing.assert_allclose([c for _, c in three],
+                               [c for _, c in eight[:3]], atol=1e-4)
