@@ -6,12 +6,12 @@
 1. builds the CUDA kernels from ``kiri_tpu_torch/kernels/csrc`` (one nvcc per
    source, in parallel) into ``build/kiri_tpu_torch/``;
 2. holds each kernel against its plain torch version on the card at the
-   shapes of the main path: the bf16 tensor-core stem and the float32 stem
-   at every width bucket (the bf16 one also at a ragged batch and widths,
-   and on its edge rows and columns alone), the preprocess kernel on the
-   main path's input, on edge cases and on extreme shapes; and times
-   kernel, plain version and (for the stem, as a whole and launch by
-   launch) the cuDNN convolutions as a yardstick;
+   shapes of the main path: the bf16 tensor-core stem and the float32
+   (3xTF32) stem at every width bucket, at a ragged batch and widths, and
+   on their edge rows and columns alone, the preprocess kernel on the main
+   path's input, on edge cases and on extreme shapes; and times kernel,
+   plain version and (for both stems, as a whole and launch by launch) the
+   cuDNN convolutions as a yardstick;
 3. drives the main paths with the committed checkpoint over the committed
    smoke lines: ``RecognizerEngine.recognize_batch(imgs, m, widths)`` for m
    in "ctc", "decoder", "beam", "auto" (the last also under a threshold that
@@ -45,9 +45,13 @@ REPO = Path(__file__).resolve().parent
 # Published H100 SXM peaks (dense), used for the bounds.
 PEAK_BF16 = 989e12        # FLOP/s, tensor cores
 PEAK_F32 = 67e12          # FLOP/s, CUDA cores
+PEAK_TF32 = 495e12        # FLOP/s, tensor cores
+F32X3_PASSES = 3          # TF32 products a float32 one takes (3xTF32)
 PEAK_BYTES = 3.35e12      # B/s, HBM3
 
-TOL_STEM_F32 = 1e-4       # summation order only (TF32 off)
+# float32 (TF32 off in the plain version): summation order, and the
+# dropped a_lo * w_lo term of 3xTF32 (~2^-22 of a product).
+TOL_STEM_F32 = 1e-4
 # bf16: kernel and plain version round each layer's output to bf16 from
 # float32 sums taken in different orders; a flipped rounding moves a value
 # by one bf16 ulp (2^-8 relative) and later layers carry it on.
@@ -128,22 +132,22 @@ def _stem_convs(folded, batch, h, w):
     return convs
 
 
-def _bound_ms(convs, in_size, peak_convs):
+def _bound_ms(convs, in_size, peak_convs, passes=1):
     """(ops_ms, bytes_ms) of consecutive convs run as one function: conv0 at
-    the float32 rate, the others at ``peak_convs``; the first one's input,
-    the weights and the last one's output moved once."""
-    ops = sum(c["flop"] / (PEAK_F32 if c["conv0"] else peak_convs)
-              for c in convs)
+    the float32 rate, the others ``passes`` times at ``peak_convs``; the
+    first one's input, the weights and the last one's output moved once."""
+    ops = sum(c["flop"] / PEAK_F32 if c["conv0"]
+              else passes * c["flop"] / peak_convs for c in convs)
     nbytes = ((convs[0]["n_in"] + convs[-1]["n_out"]) * in_size
               + sum(c["w_bytes"] for c in convs))
     return ops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def stem_phase(torch, np, model, imgs):
-    """Both stem kernels vs plain at B=128 and every width bucket; the bf16
-    one also at a ragged batch and widths and on its edges alone; times at
-    width 640, the bf16 one also launch by launch. Returns the bf16 and the
-    float32 kernel's entries."""
+    """Both stem kernels vs plain at B=128 and every width bucket, at a
+    ragged batch and widths and on their edges alone; times at width 640, as
+    a whole and launch by launch. Returns the bf16 and the float32 kernel's
+    entries."""
     from kiri_tpu_torch.kernels.stem import (STRIDES, stem_fused,
                                              stem_fused_f32, stem_mma_layer,
                                              stem_plain)
@@ -152,6 +156,13 @@ def stem_phase(torch, np, model, imgs):
     F = torch.nn.functional
     u8 = torch.from_numpy(np.resize(imgs, (BATCH,) + imgs.shape[1:])).cuda()
     errs, errs_bf16 = {}, {}
+    # The width buckets at the full batch, then ragged cases (a batch that is
+    # no bucket size, widths that are no multiple of a tile).
+    cases = [(BATCH, w) for w in WIDTHS] + [(5, 52), (3, 636)]
+    edges = (("top row", (slice(None), 0)),
+             ("bottom row", (slice(None), -1)),
+             ("left column", (slice(None), slice(None), 0)),
+             ("right column", (slice(None), slice(None), -1)))
 
     def bf16_check(got, want, scale, what):
         """Holds ``got`` to both bf16 tolerances; returns its max error."""
@@ -167,23 +178,25 @@ def stem_phase(torch, np, model, imgs):
               f"(|plain| + 1)")
         return err
 
+    def f32_check(got, want, what):
+        """Holds ``got`` to TOL_STEM_F32; returns its max error."""
+        err = float((got - want).abs().max())
+        check(err <= TOL_STEM_F32 and bool(got.isfinite().all()),
+              f"stem f32 {what}: max |kernel-plain| {err:.3e} (tol "
+              f"{TOL_STEM_F32:g}, scale {float(want.abs().max()):.3f})")
+        return err
+
     with torch.inference_mode():
         folded32 = model.stem.folded(torch.float32)
         folded16 = model.stem.folded(torch.bfloat16)
-        for w in WIDTHS:
-            x = normalize_u8(u8[:, :, :w].contiguous(), torch.float32)
+        for n, w in cases:
+            x = normalize_u8(u8[:n, :, :w].contiguous(), torch.float32)
             got = stem_fused_f32(x, folded32)
             want = stem_plain(x, folded32)
-            assert got.shape == (BATCH, 6, w // 4, folded32[-2].shape[1])
-            errs[w] = float((got - want).abs().max())
-            check(errs[w] <= TOL_STEM_F32 and bool(got.isfinite().all()),
-                  f"stem f32 W={w}: max |kernel-plain| {errs[w]:.3e} "
-                  f"(tol {TOL_STEM_F32:g}, scale "
-                  f"{float(want.abs().max()):.3f})")
-        # bf16: the width buckets at the full batch, then ragged cases (a
-        # batch that is no bucket size, widths that are no multiple of a
-        # tile).
-        cases = [(BATCH, w) for w in WIDTHS] + [(5, 52), (3, 636)]
+            assert got.shape == want.shape == (n, 6, (w - 1) // 4 + 1, 256)
+            errs[(n, w)] = f32_check(got, want, f"B={n} W={w}")
+            for name, sel in edges:
+                f32_check(got[sel], want[sel], f"B={n} W={w} {name}")
         for n, w in cases:
             x = normalize_u8(u8[:n, :, :w].contiguous(), torch.bfloat16)
             got = stem_fused(x, folded16).float()
@@ -192,10 +205,7 @@ def stem_phase(torch, np, model, imgs):
             scale = float(want.abs().max())
             errs_bf16[(n, w)] = bf16_check(got, want, scale, f"B={n} W={w}")
             # The edges alone, so that an edge fault is named as one.
-            for name, sel in (("top row", (slice(None), 0)),
-                              ("bottom row", (slice(None), -1)),
-                              ("left column", (slice(None), slice(None), 0)),
-                              ("right column", (slice(None), slice(None), -1))):
+            for name, sel in edges:
                 bf16_check(got[sel], want[sel], scale, f"B={n} W={w} {name}")
 
         def library_convs(x, folded, dtype):
@@ -217,38 +227,54 @@ def stem_phase(torch, np, model, imgs):
         def run_all(fns):
             return lambda: [fn() for fn in fns]
 
+        def per_launch(x, folded, lib, size, peak, passes):
+            """Launch by launch: conv0+conv1, conv2, conv3, each on its own
+            input: kernel ms, cuDNN ms of the same convs, bound ms."""
+            convs, out, h = _stem_convs(folded, BATCH, 48, 640), {}, x
+            for layer, which in ((1, (0, 1)), (2, (2,)), (3, (3,))):
+                ops, byt = _bound_ms([convs[i] for i in which], size, peak,
+                                     passes)
+                out["conv" + "+".join(map(str, which))] = {
+                    "ms": time_ms(torch,
+                                  lambda: stem_mma_layer(layer, h, folded)),
+                    "library_ms": time_ms(torch,
+                                          run_all([lib[i] for i in which])),
+                    "bound_ms": max(ops, byt)}
+                h = stem_mma_layer(layer, h, folded)
+            return out
+
         x16 = normalize_u8(u8, torch.bfloat16)
         lib16 = library_convs(x16, folded16, torch.bfloat16)
         ms = time_ms(torch, lambda: stem_fused(x16, folded16))
         plain_ms = time_ms(torch, lambda: stem_plain(x16, folded16), iters=5)
         library_ms = time_ms(torch, run_all(lib16))
-        # Launch by launch: conv0+conv1, conv2, conv3, each on its own input.
-        convs16 = _stem_convs(folded16, BATCH, 48, 640)
-        per_launch, h = {}, x16
-        for layer, which in ((1, (0, 1)), (2, (2,)), (3, (3,))):
-            ops, byt = _bound_ms([convs16[i] for i in which], 2, PEAK_BF16)
-            per_launch["conv" + "+".join(map(str, which))] = {
-                "ms": time_ms(torch, lambda: stem_mma_layer(layer, h, folded16)),
-                "library_ms": time_ms(torch,
-                                      run_all([lib16[i] for i in which])),
-                "bound_ms": max(ops, byt)}
-            h = stem_mma_layer(layer, h, folded16)
-        del lib16, h
+        launches16 = per_launch(x16, folded16, lib16, 2, PEAK_BF16, 1)
+        del lib16
         x32 = normalize_u8(u8, torch.float32)
         lib32 = library_convs(x32, folded32, torch.float32)
-        ms32 = time_ms(torch, lambda: stem_fused_f32(x32, folded32), iters=5)
+        ms32 = time_ms(torch, lambda: stem_fused_f32(x32, folded32))
         plain_ms32 = time_ms(torch, lambda: stem_plain(x32, folded32), iters=5)
         library_ms32 = time_ms(torch, run_all(lib32), iters=5)
+        launches32 = per_launch(x32, folded32, lib32, 4, PEAK_TF32,
+                                F32X3_PASSES)
         del lib32
+    convs16 = _stem_convs(folded16, BATCH, 48, 640)
+    convs32 = _stem_convs(folded32, BATCH, 48, 640)
     ops_ms, bytes_ms = _bound_ms(convs16, 2, PEAK_BF16)
-    ops_ms32, bytes_ms32 = _bound_ms(_stem_convs(folded32, BATCH, 48, 640), 4,
-                                     PEAK_F32)
+    ops_ms32, bytes_ms32 = _bound_ms(convs32, 4, PEAK_TF32, F32X3_PASSES)
+    cores_ms32 = max(_bound_ms(convs32, 4, PEAK_F32))
     print(f"stem work: {convs16[0]['flop'] / 1e9:.2f} GFLOP conv0 + "
           f"{sum(c['flop'] for c in convs16[1:]) / 1e9:.1f} GFLOP convs 1-3",
           flush=True)
-    print(f"stem bf16 launch by launch (ms, cuDNN ms, bound ms): "
-          + "; ".join(f"{k} {v['ms']:.3f} {v['library_ms']:.3f} "
-                      f"{v['bound_ms']:.3f}" for k, v in per_launch.items()),
+    for name, launches in (("bf16", launches16), ("f32", launches32)):
+        print(f"stem {name} launch by launch (ms, cuDNN ms, bound ms): "
+              + "; ".join(f"{k} {v['ms']:.3f} {v['library_ms']:.3f} "
+                          f"{v['bound_ms']:.3f}" for k, v in launches.items()),
+              flush=True)
+    print(f"stem f32 bound: {max(ops_ms32, bytes_ms32):.3f} ms with "
+          f"{F32X3_PASSES} TF32 passes on the tensor cores, "
+          f"{cores_ms32:.3f} ms at the CUDA cores' float32 rate; largest "
+          f"error {max(errs.values()):.3e} (tol {TOL_STEM_F32:g})",
           flush=True)
     common = {"route": "cuda", "replaces": "kiri_tpu/kernels/stem.py:233",
               "launches": 0}
@@ -259,22 +285,23 @@ def stem_phase(torch, np, model, imgs):
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms, "per_launch": per_launch,
+        "library_ms": library_ms, "per_launch": launches16,
         "shape": f"x bf16 [{BATCH},48,640] -> [{BATCH},6,160,256]",
         "tolerance": f"{TOL_STEM_BF16_REL:g} x max(1, max |plain|) and, per "
                      f"element, {TOL_STEM_BF16_ELEM:g} x (|plain| + 1), at "
                      f"{cases} and on the edge rows and columns alone",
     }, {
         "name": "stem_fused_f32", **common,
-        "source": "kiri_tpu_torch/kernels/csrc/stem_conv.cu",
+        "source": "kiri_tpu_torch/kernels/csrc/stem_f32x3.cu",
         "max_abs_err": max(errs.values()),
         "ms": ms32, "plain_ms": plain_ms32,
         "bound_ms": max(ops_ms32, bytes_ms32),
         "bound_by": "operations" if ops_ms32 >= bytes_ms32 else "bytes",
-        "library_ms": library_ms32,
+        "library_ms": library_ms32, "per_launch": launches32,
         "shape": f"x f32 [{BATCH},48,640] -> [{BATCH},6,160,256]",
-        "tolerance": f"{TOL_STEM_F32:g} (TF32 off), at B={BATCH} and W in "
-                     f"{WIDTHS}",
+        "tolerance": f"{TOL_STEM_F32:g} (TF32 off in the plain version and "
+                     f"cuDNN), at {cases} and on the edge rows and columns "
+                     f"alone",
     }]
 
 
@@ -384,9 +411,12 @@ def main_path_phase(torch, np, model, cfg, tok, d, crops):
         by_run[name] = {k: v for k, v in counts.items() if v}
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        check(all(counts[k] > 0 for k in needs),
+        # Both stems launch 3 kernels an encode.
+        check(all(counts[k] > 0 and (counts[k] % 3 == 0 or "stem" not in k)
+                  for k in needs),
               f"{name}: {len(res)} lines in {dt:.3f} s, launches "
-              f"{by_run[name]} (needs {', '.join(needs)})")
+              f"{by_run[name]} (needs {', '.join(needs)}; the stem's in "
+              f"threes)")
         return res
 
     def runs_of(eng, stem):

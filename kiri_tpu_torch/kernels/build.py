@@ -2,12 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes plain C entry points. It is compiled with
 ``nvcc`` into ``build/kiri_tpu_torch/lib<name>_<hash>.so`` at the root of the
-checkout the first time it is needed (the hash covers the source, the
-headers beside it and the flags, so an edited source builds anew) and loaded
-with ``ctypes``. Every C
-entry takes device pointers and the CUDA stream as ``void*`` and returns
-``cudaGetLastError()`` after its launches; ``check`` raises when that is not
-0. Nothing here runs on import: the CPU tests import every module.
+checkout the first time it is needed (the hash covers the source, every
+header under ``csrc/`` and the flags, so an edited source or header builds
+anew) and loaded with ``ctypes``. Every C entry takes device pointers and
+the CUDA stream as ``void*`` and returns ``cudaGetLastError()`` after its
+launches; ``check`` raises when that is not 0. Nothing here runs on import:
+the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kiri_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("preprocess_lines", "stem_conv", "stem_mma")
+SOURCES = ("preprocess_lines", "stem_f32x3", "stem_mma")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,10 +45,16 @@ def _nvcc() -> str:
     return found
 
 
+def _headers() -> List[Path]:
+    """Every header under ``csrc/`` (``*.h``, ``*.cuh``): any source may
+    include any of them."""
+    return sorted(p for ext in ("h", "cuh") for p in CSRC.rglob(f"*.{ext}"))
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    for header in sorted(CSRC.glob("*.h")):
-        src += header.read_bytes()
+    for header in _headers():
+        src += str(header.relative_to(CSRC)).encode() + header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -3,7 +3,7 @@
 // conv0 computed inside the conv1 kernel.
 //
 // Replaces the TPU kernel kiri_tpu/kernels/stem.py::stem_fused_tpu (body
-// _stem_kernel) for bfloat16 inputs; csrc/stem_conv.cu stays the float32
+// _stem_kernel) for bfloat16 inputs; csrc/stem_f32x3.cu is the float32
 // route.
 //
 // Bound on an H100: operations. At batch 128 x 48 x 640 the stem is 240

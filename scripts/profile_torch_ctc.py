@@ -151,7 +151,8 @@ def main() -> int:
         # The port's own kernels, by the names in csrc/*.cu.
         stem = sum(v for k, v in kernels.items()
                    if "stem_layer_kernel" in k or "stem_conv01_kernel" in k
-                   or "conv3x3_silu_kernel" in k)
+                   or "stem_f32_layer_kernel" in k
+                   or "stem_f32_conv01_kernel" in k)
         pre = sum(v for k, v in kernels.items()
                   if "preprocess_lines_kernel" in k)
         report["paths"][name] = {

@@ -1,5 +1,5 @@
 """The pieces of kiri_tpu_torch's bf16 tensor-core stem that run on the CPU:
-the packed weight layout, the tile plan, the fused conv0 -> conv1 tile with
+the packed weight layout, the tile plan (of the float32 kernel too), the fused conv0 -> conv1 tile with
 its edge zeroing (emulated in plain torch, tile by tile, as the CUDA kernel
 computes it), and the folded-weight cache of ``Recognizer.encode``."""
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from kiri_tpu.models import recognizer as R
 from kiri_tpu.train.checkpoints import load_checkpoint as j_load
 from kiri_tpu_torch.checkpoints import load_checkpoint
-from kiri_tpu_torch.kernels.stem import (MMA_CHANNELS, MMA_TILES, STRIDES,
+from kiri_tpu_torch.kernels.stem import (F32_TILES, MMA_CHANNELS,
+                                         MMA_TILES, STRIDES,
                                          fold_stem_weights,
                                          pack_stem_weights, stem_mma_layer,
                                          tile_plan, unpack_stem_weights)
@@ -81,18 +82,22 @@ def test_pack_unpack_is_bit_exact(stem, layer):
 
 
 # ----------------------------------------------------------- (c) tile plan
-@pytest.mark.parametrize("w", WIDTHS + RAGGED)
+@pytest.mark.parametrize("w, tiles", [
+    *(pytest.param(w, MMA_TILES, id=str(w)) for w in WIDTHS + RAGGED),
+    *(pytest.param(w, F32_TILES, id=f"f32-{w}") for w in WIDTHS + RAGGED)])
 @pytest.mark.parametrize("layer", [1, 2, 3])
-def test_tile_plan_covers_every_output_pixel_once(layer, w):
+def test_tile_plan_covers_every_output_pixel_once(layer, w, tiles):
+    """Both kernels' plans: bf16 (``MMA_TILES``) and float32
+    (``F32_TILES``)."""
     h = 48
     for i in range(1, layer):                    # this layer's input size
         h, w = (h - 1) // STRIDES[i][0] + 1, (w - 1) // STRIDES[i][1] + 1
     sh, sw = STRIDES[layer]
     ho, wo = (h - 1) // sh + 1, (w - 1) // sw + 1
-    th, tw = MMA_TILES[layer]
+    th, tw = tiles[layer][:2]
     assert th * tw % 64 == 0 and tw % 8 == 0     # whole warpgroups of pixels
     hits = np.zeros((ho, wo), np.int32)
-    for t in tile_plan(layer, h, w):
+    for t in tile_plan(layer, h, w, tiles):
         assert 0 < t.oy1 - t.oy0 <= th and 0 < t.ox1 - t.ox0 <= tw
         hits[t.oy0:t.oy1, t.ox0:t.ox1] += 1
         # The patch holds every input pixel the 3x3 taps of the tile read.
