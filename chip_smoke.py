@@ -24,9 +24,20 @@
    confidences within 1e-3; then "decoder" once more under
    ``SPEC_MAX_ROUNDS=1``, which sends lines through the step-loop fallback,
    against the JAX package's answers for that setting;
-4. prints one throughput line per method, the card's name and power limit,
-   one ``{"kernels": [...]}`` line, and as its last line
-   ``{"ok": true, "device": {...}}``.
+4. drives the rest of the engine the same way, each run with the counters
+   at 0: ``stream_records_batch(imgs, m)`` one-shot and with ``window=8`` for
+   "ctc", "decoder" and "beam", and "auto" (float32 records equal the JAX
+   package's stored records, windowed records equal one-shot ones, bfloat16
+   final texts within the CER limits); ``recognize_crops(noisy_crops, m,
+   enhance=True, sharpen=mask)`` for "ctc" and "decoder" (``enhance_lines``
+   on the card gives the CPU's bytes and flags lines for the preprocess
+   kernel's linear resize; float32 texts equal the stored ones); and "beam"
+   under ``SPEC_BEAM=True`` (the step-loop beam's texts, with LM fusion on,
+   where no line certifies, and off, where most do);
+5. prints one throughput line per method, one line per streamed method with
+   the time to the first record one-shot and with ``window=8``, the card's
+   name and power limit, one ``{"kernels": [...]}`` line, and as its last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits with code 1 and prints no result line. The script
 needs the rest of the repository beside it and a CUDA device.
@@ -64,6 +75,8 @@ TOL_PRE = 2e-3            # normalized units; ~0.26 of a u8 grey level
 CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" and "beam"
 CER_MAX_DECODER = 0.03    # ... and its "decoder" row
 TOL_CONF_F32 = 1e-3       # float32 confidences against kiri_tpu's
+STREAM_WINDOW = 8
+STREAM_WINDOWS_TIMED = (1, 4, 8, 16, 32)
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
 
@@ -515,7 +528,216 @@ def main_path_phase(torch, np, model, cfg, tok, d, crops):
         print(f"throughput {method} (bf16, batch {BATCH}, width-bucketed, "
               f"host clock, texts fetched): {BATCH / dt:.1f} lines/s "
               f"({dt * 1e3:.2f} ms per call)", flush=True)
+
+    streams_phase(np, d, texts, is_kh, eng, eng32, drive)
+    enhance_phase(torch, np, d, texts, eng, eng32, drive)
+    spec_beam_phase(d, model, cfg32, tok, eng32, drive)
     return total, by_run
+
+
+def _lcp_tokens(records):
+    """A line's beam records with ``token`` under the port's rule: what the
+    text adds past its longest common prefix with the previous text."""
+    out, prev = [], ""
+    for r in records:
+        n = 0
+        while n < min(len(prev), len(r["text"])) and prev[n] == r["text"][n]:
+            n += 1
+        out.append(dict(r, token=r["text"][n:]))
+        prev = r["text"]
+    return out
+
+
+def _records_differ(ours, ref, tol):
+    """(lines whose records differ: a key other than ``confidence``, or a
+    confidence by more than ``tol``; the largest confidence difference of
+    the records compared)."""
+    bad, worst = [], 0.0
+    for i, (o, r) in enumerate(zip(ours, ref)):
+        strip = [[{k: v for k, v in x.items() if k != "confidence"}
+                  for x in recs] for recs in (o, r)]
+        diff = max((abs(a["confidence"] - b["confidence"])
+                    for a, b in zip(o, r)), default=0.0)
+        worst = max(worst, diff)
+        if strip[0] != strip[1] or diff > tol:
+            bad.append(i)
+    return bad + list(range(min(len(ours), len(ref)),
+                            max(len(ours), len(ref)))), worst
+
+
+def streams_phase(np, d, texts, is_kh, eng, eng32, drive):
+    """Streaming, one-shot and windowed, in bf16 and float32: float32
+    records against kiri_tpu's stored ones, windowed against one-shot in
+    the same run, bf16 final texts against the ground truth; then the time
+    to the first record at batch 64 in bf16."""
+    import json
+
+    imgs = d["imgs"]
+    stored = json.loads(str(d["stream_records_f32"]))
+    cer_max = {"ctc": CER_MAX, "decoder": CER_MAX_DECODER, "beam": CER_MAX}
+    for tag, e in (("bf16", eng), ("f32", eng32)):
+        stem = "stem_fused" if tag == "bf16" else "stem_fused_f32"
+        one = {}
+        for m in ("ctc", "decoder", "beam", "auto"):
+            one[m] = drive(f"{tag} stream {m}", lambda: [list(r) for r in
+                           e.stream_records_batch(imgs, m)], (stem,))
+        check(one["auto"] == one["ctc"],
+              f"{tag} stream auto: the ctc stream's records")
+        for m in ("ctc", "decoder", "beam"):
+            win = drive(f"{tag} stream {m} window={STREAM_WINDOW}",
+                        lambda: [list(r) for r in e.stream_records_batch(
+                            imgs, m, window=STREAM_WINDOW)], (stem,))
+            # A decoder line's one-shot probabilities come from
+            # spec_decode's whole-sequence pass, the window's from the
+            # cached step.
+            tol = 1e-3 if m == "decoder" else 0.0
+            bad, worst = _records_differ(win, one[m], tol)
+            check(not bad, f"{tag} stream {m}: window={STREAM_WINDOW} "
+                  f"records equal the one-shot records on "
+                  f"{len(imgs) - len(bad)}/{len(imgs)} lines, max |conf "
+                  f"diff| {worst:.2e} (tol {tol:g})"
+                  + (f"; first {bad[:3]}" if bad else ""))
+            final = [r[-1]["text"] for r in one[m]]
+            if tag == "f32":
+                ref = stored[m]
+                n_rule = 0
+                if m == "beam":
+                    n_rule = sum(_lcp_tokens(r) != r for r in ref)
+                    ref = [_lcp_tokens(r) for r in ref]
+                bad, worst = _records_differ(one[m], ref, TOL_CONF_F32)
+                check(not bad,
+                      f"f32 stream {m}: records equal kiri_tpu's stored "
+                      f"records on {len(imgs) - len(bad)}/{len(imgs)} lines "
+                      f"({sum(map(len, one[m]))} records, max |conf diff| "
+                      f"{worst:.2e}, tol {TOL_CONF_F32:g})"
+                      + (f"; {n_rule} lines where kiri_tpu's token rule "
+                         f"differs" if m == "beam" else "")
+                      + (f"; first {bad[:3]}" if bad else ""))
+            else:
+                kh = cer([(t, o) for t, o, k in zip(texts, final, is_kh)
+                          if k])
+                en = cer([(t, o) for t, o, k in zip(texts, final, is_kh)
+                          if not k])
+                agree = sum(a == str(b) for a, b in zip(
+                    final, d[f"stream_{m}_texts_bf16"]))
+                check(kh <= cer_max[m] and en <= cer_max[m],
+                      f"bf16 stream {m}: final texts Khmer CER {kh:.4f}, "
+                      f"English CER {en:.4f} (max {cer_max[m]}); "
+                      f"{agree}/{len(final)} equal kiri_tpu's bf16 stream "
+                      f"texts")
+    # Time to the first record of line 0, bf16, batch 64, host clock: the
+    # median of 3 calls each, after 2 to warm up.
+    def timed(m, w):
+        """(ms to line 0's first record, ms to all records, records,
+        windows run) of one call."""
+        t0 = time.perf_counter()
+        gens = eng.stream_records_batch(imgs, m, window=w)
+        it = iter(gens[0])
+        first = [next(it)]
+        t_first = time.perf_counter() - t0
+        # "ctc" has no window: its records come with the encode.
+        runner = it.gi_frame.f_locals["self"] if w and m != "ctc" else None
+        n_rec = sum(map(len, [first + list(it)] + [list(g) for g in gens[1:]]))
+        return (t_first * 1e3, (time.perf_counter() - t0) * 1e3, n_rec,
+                runner.windows if runner is not None else 0)
+
+    def median_of(m, w, reps=3):
+        for _ in range(2):
+            timed(m, w)
+        runs = sorted(timed(m, w) for _ in range(reps))
+        return runs[reps // 2]
+
+    for m in ("ctc", "decoder", "beam"):
+        one = median_of(m, None)
+        win = {w: median_of(m, w) for w in (
+            (STREAM_WINDOW,) if m == "ctc" else STREAM_WINDOWS_TIMED)}
+        first, total, n_rec, windows = win[STREAM_WINDOW]
+        print(f"stream {m} (bf16, batch {len(imgs)}, host clock, median of "
+              f"3): first record one-shot {one[0]:.2f} ms (all {one[2]} "
+              f"records); window={STREAM_WINDOW}: first record {first:.2f} "
+              f"ms, all {n_rec} records {total:.2f} ms in {windows} windows"
+              + ("; by window (first ms / all ms / windows): " + ", ".join(
+                  f"{w}: {v[0]:.2f} / {v[1]:.2f} / {v[3]}"
+                  for w, v in win.items()) if len(win) > 1 else ""),
+              flush=True)
+
+
+def enhance_phase(torch, np, d, texts, eng, eng32, drive):
+    """``recognize_crops(..., enhance=True)`` on the 16 noisy crops in bf16
+    and float32, and ``enhance_lines`` on the card against the CPU."""
+    from kiri_tpu_torch.kernels.resize import enhance_lines, pack_crops
+    from kiri_tpu_torch.smoke import noisy_crops
+
+    crops, sharpen = noisy_crops(d)
+    buf, sizes = pack_crops(crops)
+    outs = [enhance_lines(torch.from_numpy(buf).to(dev),
+                          torch.from_numpy(sizes).to(dev),
+                          torch.from_numpy(sharpen).to(dev))
+            for dev in ("cuda", "cpu")]
+    (gpu, sn_gpu), (cpu, sn_cpu) = [(o.cpu().numpy(), f.cpu().numpy())
+                                    for o, f in outs]
+    flat = np.concatenate([o[:h, :w].ravel() for o, (h, w) in zip(gpu, sizes)])
+    check(np.array_equal(gpu, cpu) and np.array_equal(sn_gpu, sn_cpu)
+          and np.array_equal(flat, d["noisy_enhanced_flat"])
+          and np.array_equal(sn_gpu, d["noisy_small_noisy"]) and sn_gpu.any(),
+          f"enhance_lines on the card: the CPU's u8 bytes and flags and "
+          f"kiri_tpu's stored ones on {len(crops)} crops "
+          f"({int((gpu != buf).sum())} pixels changed, {int(sn_gpu.sum())} "
+          f"lines flagged for the linear resize)")
+    truth = [texts[i] for i in d["noisy_src"]]
+    for tag, e in (("bf16", eng), ("f32", eng32)):
+        stem = "stem_fused" if tag == "bf16" else "stem_fused_f32"
+        for m in ("ctc", "decoder"):
+            res = drive(f"{tag} crops_enhance {m}", lambda: e.recognize_crops(
+                crops, m, enhance=True, sharpen=sharpen),
+                (stem, "preprocess_lines"))
+            hyp = [t for t, _ in res]
+            key = f"crops_enhance_{m}_texts_{tag}"
+            agree = sum(a == str(b) for a, b in zip(hyp, d[key]))
+            conf = np.asarray([c for _, c in res])
+            dconf = np.abs(conf - d[f"crops_enhance_{m}_conf_{tag}"]).max()
+            ok = np.isfinite(conf).all() and 0 <= conf.min() <= conf.max() <= 1
+            if tag == "f32":
+                ok &= agree == len(hyp) and dconf <= TOL_CONF_F32
+            check(ok, f"{tag} crops_enhance {m}: {agree}/{len(hyp)} texts "
+                  f"equal kiri_tpu's {tag} texts, max |conf diff| "
+                  f"{dconf:.2e}; CER against the clean lines' truth "
+                  f"{cer(list(zip(truth, hyp))):.4f}")
+
+
+def spec_beam_phase(d, model, cfg32, tok, eng32, drive):
+    """"beam" under ``SPEC_BEAM=True`` in float32: with LM fusion on (no
+    line certifies) against kiri_tpu's stored step-loop texts, and with it
+    off (most lines certify) against the port's step loop in this run."""
+    from kiri_tpu_torch.engine import RecognizerEngine
+
+    imgs, widths = d["imgs"], d["widths"]
+    spec = RecognizerEngine(model, cfg32.replace(SPEC_BEAM=True), tok,
+                            device="cuda")
+    for key, fn in (("batch_beam", lambda: spec.recognize_batch(
+            imgs, "beam", widths)), ("batch_spec_beam",
+                                     lambda: spec.recognize_batch(
+                                         imgs, "beam"))):
+        before = spec.certified_rows
+        res = drive(f"f32 SPEC_BEAM {key}", fn, ("stem_fused_f32",))
+        same = sum(t == str(w) for (t, _), w in zip(
+            res, d[f"{key}_texts_f32"]))
+        check(same == len(imgs), f"f32 SPEC_BEAM {key}: {same}/{len(imgs)} "
+              f"texts equal kiri_tpu's stored texts; "
+              f"{spec.certified_rows - before} lines certified")
+    off = cfg32.replace(USE_LM_FUSION_EVAL=False)
+    step = RecognizerEngine(model, off, tok, device="cuda")
+    spec = RecognizerEngine(model, off.replace(SPEC_BEAM=True), tok,
+                            device="cuda")
+    want = [t for t, _ in step.recognize_batch(imgs, "beam", widths)]
+    got = [t for t, _ in drive("f32 SPEC_BEAM, fusion off", lambda:
+                               spec.recognize_batch(imgs, "beam", widths),
+                               ("stem_fused_f32",))]
+    same = sum(a == b for a, b in zip(got, want))
+    check(same == len(imgs) and spec.certified_rows > 0,
+          f"f32 SPEC_BEAM, USE_LM_FUSION_EVAL=False: {same}/{len(imgs)} texts"
+          f" equal the step-loop beam's; {spec.certified_rows} lines "
+          f"certified")
 
 
 def main() -> int:

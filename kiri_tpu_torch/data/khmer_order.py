@@ -15,6 +15,8 @@ CTC labels in that visual order; the tokenizer maps them back:
 
 Both are the identity on text with no pre-base vowels. As in the JAX
 package, visual -> logical round-trips only canonical cluster order.
+``IncrementalLogical`` reorders a stream of visual-order characters as they
+arrive (streaming decodes), holding back a cluster until it closes.
 """
 from __future__ import annotations
 
@@ -122,3 +124,62 @@ def to_logical_order(text: str) -> str:
             out.append(text[i])
             i += 1
     return "".join(out)
+
+
+def stable_visual_prefix(text: str) -> int:
+    """Length of the visual-order prefix whose logical transform can no
+    longer change as more characters arrive.
+
+    The last visual unit (a run of pre-base vowels with the cluster after
+    it, which may still grow, or a lone character) is held back: a later
+    mark or coeng pair could extend it, and a held pre-base vowel's logical
+    place moves as coeng pairs arrive. Everything before it is final,
+    because ``to_logical_order`` treats units one by one.
+    """
+    i, n = 0, len(text)
+    last_start = 0
+    while i < n:
+        start = i
+        while i < n and ord(text[i]) in _PREBASE:
+            i += 1
+        if i < n and _is_base(text[i]):
+            i = _cluster_end(text, i, visual=True)
+        elif i == start:
+            i += 1
+        last_start = start
+    return last_start
+
+
+class IncrementalLogical:
+    """Visual -> logical reordering of a stream that only ever appends.
+
+    ``push`` takes visual-order characters and returns the logical
+    characters that became final ("" while a cluster is open, several once
+    it closes); ``flush`` returns the rest at the end of the stream.
+    ``emitted`` is always ``to_logical_order(everything pushed)[:
+    len(emitted)]``.
+    """
+
+    def __init__(self) -> None:
+        self._raw = ""
+        # Characters of _raw already emitted: the transform is a
+        # permutation, so logical and visual lengths agree.
+        self._stable = 0
+
+    @property
+    def emitted(self) -> str:
+        return to_logical_order(self._raw[: self._stable])
+
+    def push(self, chars: str) -> str:
+        self._raw += chars
+        j = stable_visual_prefix(self._raw)
+        if j <= self._stable:
+            return ""
+        out = to_logical_order(self._raw[: j])[self._stable:]
+        self._stable = j
+        return out
+
+    def flush(self) -> str:
+        out = to_logical_order(self._raw)[self._stable:]
+        self._stable = len(self._raw)
+        return out

@@ -15,6 +15,13 @@ look at the device's condition only every few steps: lines that are finished
 or past their own budget are frozen bit for bit, so steps past the end
 change nothing (``poll_every``).
 
+The same steps run a window at a time for streaming
+(``beam_stream_window``, ``greedy_stream_window``: the state stays on the
+device between windows), and ``beam_search(record_history=True)`` keeps the
+best beam after each step for one-shot streaming. ``beam_spec_certificate``
+proves, line by line, that beam search would return ``spec_decode``'s
+transcript.
+
 Everything runs under the caller's ``torch.inference_mode()`` on the device
 of ``mem_proj``; ``model`` is a ``models.recognizer.Recognizer``.
 """
@@ -44,6 +51,13 @@ class DecodeOut(NamedTuple):
     # [N] bool; None = always (the step loops run to completion;
     # ``spec_decode`` sets False past its round budget).
     converged: Optional[torch.Tensor] = None
+    # ``beam_search(record_history=True)``: the best beam after each step
+    # (``_stream_best``), [N, l_cap, L_buf] / [N, l_cap]; zero where a line
+    # took no step. None otherwise.
+    hist_tokens: Optional[torch.Tensor] = None
+    hist_len: Optional[torch.Tensor] = None
+    hist_score: Optional[torch.Tensor] = None
+    hist_finished: Optional[torch.Tensor] = None
 
 
 def _repeat_terms(cfg, n, s):
@@ -220,8 +234,9 @@ def _beam_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
                scores, lengths, finished, cache, steps_done, *, cfg,
                eos_id: int, unk_dec_id: int):
     """One beam-search step for all N lines. Returns the updated (tokens,
-    scores, lengths, finished, cache, steps_done); lines past
-    their step budget or with every beam finished are frozen bit for bit.
+    scores, lengths, finished, cache, steps_done) and the lines that took
+    the step; lines past their step budget or with every beam finished are
+    frozen bit for bit.
 
     The K/V cache rows follow their beams: after the step the cache is
     gathered by parent (``index_select`` over its row axis)."""
@@ -281,7 +296,35 @@ def _beam_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
     lengths = torch.where(la, new_lengths, lengths)
     finished = torch.where(la, new_finished, finished)
     steps_done = steps_done + line_active.to(torch.int32)
-    return tokens, scores, lengths, finished, cache, steps_done
+    return tokens, scores, lengths, finished, cache, steps_done, line_active
+
+
+def _stream_best(cfg, tokens, scores, lengths, finished):
+    """Each line's best beam as streaming ranks beams: by the score over
+    plain ``L^p`` (not the pruning norm), the first of equals. Returns its
+    (tokens [N, L_buf], length, score, finished)."""
+    normed = scores / (lengths - 1).clamp(min=1).float() ** cfg.BEAM_LENP
+    best = normed.argmax(dim=1, keepdim=True)
+    l_buf = tokens.shape[2]
+    return (tokens.gather(1, best[..., None].expand(-1, 1, l_buf))[:, 0],
+            lengths.gather(1, best)[:, 0], scores.gather(1, best)[:, 0],
+            finished.gather(1, best)[:, 0])
+
+
+def _record(hist, row, active, snapshot) -> None:
+    """Write a step's best-beam ``snapshot`` into row ``row`` of the history
+    buffers (tokens, len, score, finished) for the ``active`` lines."""
+    for buf, val in zip(hist, snapshot):
+        keep = active.view(-1, *([1] * (val.dim() - 1)))
+        buf[:, row] = torch.where(keep, val, buf[:, row])
+
+
+def _new_history(n: int, steps: int, l_buf: int, dev):
+    """Zeroed best-beam history buffers (tokens, len, score, finished)."""
+    return (torch.zeros((n, steps, l_buf), dtype=torch.int32, device=dev),
+            torch.zeros((n, steps), dtype=torch.int32, device=dev),
+            torch.zeros((n, steps), device=dev),
+            torch.zeros((n, steps), dtype=torch.bool, device=dev))
 
 
 def beam_search(model, mem_proj: torch.Tensor,
@@ -289,7 +332,8 @@ def beam_search(model, mem_proj: torch.Tensor,
                 ctc_conf: torch.Tensor, *, cfg, k_beam: int, l_cap: int,
                 eos_id: int = 2, unk_dec_id: int = 3, dec_offset: int = 3,
                 bos_id: int = 1, step_bound: Optional[int] = None,
-                poll_every: int = POLL_EVERY) -> DecodeOut:
+                poll_every: int = POLL_EVERY,
+                record_history: bool = False) -> DecodeOut:
     """Batched beam search over N lines with K beams each.
 
     mem_proj [N, T, D] projected memory in the compute dtype; ctc_logits
@@ -307,6 +351,9 @@ def beam_search(model, mem_proj: torch.Tensor,
 
     The K/V cache is written in place at the step's position and read up to
     it; for K > 1 its rows are gathered by beam parent after each step.
+
+    ``record_history`` keeps each line's best beam after every step it took
+    (``hist_*`` of the result), what one-shot beam streaming replays.
     """
     n, t_mem, _ = mem_proj.shape
     K = k_beam
@@ -324,12 +371,17 @@ def beam_search(model, mem_proj: torch.Tensor,
     lengths = torch.ones((n, K), dtype=torch.int32, device=dev)
     finished = torch.zeros((n, K), dtype=torch.bool, device=dev)
     steps_done = torch.zeros((n,), dtype=torch.int32, device=dev)
+    hist = _new_history(n, l_cap, l_buf, dev) if record_history else None
 
     for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
-        tokens, scores, lengths, finished, cache, steps_done = _beam_step(
+        (tokens, scores, lengths, finished, cache, steps_done,
+         active) = _beam_step(
             model, cross_kvs, target_len, max_steps, t, tokens, scores,
             lengths, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
             unk_dec_id=unk_dec_id)
+        if hist is not None:
+            _record(hist, t, active,
+                    _stream_best(cfg, tokens, scores, lengths, finished))
         if poll_every and (t + 1) % poll_every == 0 and not bool(
                 ((t + 1 < max_steps) & ~finished.all(dim=1)).any()):
             break
@@ -356,8 +408,12 @@ def beam_search(model, mem_proj: torch.Tensor,
     best_dec_conf = dec_conf.gather(1, best)[:, 0]
     final_conf = (0.6 * best_dec_conf + 0.4 * ctc_conf
                   if ctc_logits is not None else best_dec_conf)
-    return DecodeOut(best_tokens, lengths.gather(1, best)[:, 0],
-                     best_dec_conf, final_conf, ctc_conf, steps_done)
+    out = DecodeOut(best_tokens, lengths.gather(1, best)[:, 0],
+                    best_dec_conf, final_conf, ctc_conf, steps_done)
+    if hist is not None:
+        out = out._replace(hist_tokens=hist[0], hist_len=hist[1],
+                           hist_score=hist[2], hist_finished=hist[3])
+    return out
 
 
 # ==========================================================================
@@ -609,6 +665,252 @@ def greedy_decode(model, mem_proj: torch.Tensor, target_len: torch.Tensor,
                            torch.zeros_like(score)).clamp(0.0, 1.0)
     return DecodeOut(tokens, lengths, dec_conf, dec_conf,
                      torch.zeros_like(dec_conf), steps_done, hist_extra)
+
+
+# ==========================================================================
+# Certificate-gated speculative beam
+# ==========================================================================
+def beam_spec_certificate(model, mem_proj: torch.Tensor,
+                          ctc_logits: Optional[torch.Tensor],
+                          target_len: torch.Tensor, tokens: torch.Tensor,
+                          lengths: torch.Tensor, *, cfg, k_beam: int,
+                          l_cap: int, eos_id: int = 2, unk_dec_id: int = 3,
+                          dec_offset: int = 3) -> torch.Tensor:
+    """[N] bool: True where ``beam_search(k_beam)`` provably returns the
+    single-hypothesis transcript ``tokens`` [N, L_buf] (``spec_decode``'s,
+    ``lengths`` [N]), from one teacher-forced pass over it.
+
+    The argument (the JAX package's, ``kiri_tpu/ops/decode.py``): every
+    step's score term is <= 0 when ``EOS_LOGP_BOOST == 0``,
+    ``EOS_LOGP_BIAS >= 0`` and ``BEAM_LENP >= 0`` (else all False). A beam
+    that leaves the path g first takes a runner-up token v at some step t';
+    its score stays <= D = S(t') + logp_t'[v], S being g's prefix sum. (A)
+    If max D over the pruning norm at the largest length stays below g's
+    own normed trajectory, g is the top beam at every step; (B) if max D
+    over ``max_steps^BEAM_LENP`` (alignment term <= 0) stays below g's final
+    CTC-fused score, the final choice is g. g must also be the strict
+    argmax of this pass at every step (by a margin) and max D < 0; a margin
+    in normed-score space absorbs the drift between this pass and the
+    cached steps.
+
+    With LM fusion on (the committed checkpoint's setting) every chosen
+    token costs ~1.4 nats of LM entropy that the bound cannot charge to a
+    competitor, and the JAX package measured 0 of 24 clean lines certified;
+    with ``USE_LM_FUSION_EVAL=False`` rows do certify.
+    """
+    n, l_buf = tokens.shape
+    dev = tokens.device
+    K = k_beam
+    if (K < 2 or cfg.EOS_LOGP_BOOST != 0.0 or cfg.EOS_LOGP_BIAS < 0.0
+            or cfg.BEAM_LENP < 0.0):
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+    # Margins for the drift between the whole-sequence pass and the cached
+    # step path: in normed-score space and between the top two tokens.
+    eps_norm, eps_tok = 0.1, 0.05
+    target_len = target_len.to(torch.int32)
+    max_steps = max_decode_steps(cfg, target_len, mem_proj.shape[1]).clamp(
+        max=l_cap)
+    dec_logits, lm_logits = model.decoder_forward_heads(mem_proj, tokens)
+    logp = apply_penalties_seq(_fused_logp(dec_logits, lm_logits, cfg),
+                               tokens, cfg, target_len, eos_id, unk_dec_id)
+    topv, topi = _top_k(logp, K)                             # [N, L, K]
+
+    pos = torch.arange(l_buf, device=dev)[None, :]
+    n_steps = (lengths - 1).clamp(min=0)
+    step_mask = pos < n_steps[:, None]
+    nxt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    chosen_lp = logp.gather(2, nxt.long()[..., None])[..., 0]
+    path_ok = (~step_mask | ((topi[..., 0] == nxt)
+                             & (topv[..., 0] - topv[..., 1] > eps_tok))
+               ).all(dim=1)
+
+    step_lp = torch.where(step_mask, chosen_lp, 0.0)
+    S = step_lp.cumsum(dim=1)                             # after step t
+    s_final = S.gather(1, (n_steps - 1).clamp(min=0).long()[:, None])[:, 0]
+    s_final = torch.where(n_steps > 0, s_final, 0.0)
+    # Branch roots: the K - 1 runner-up expansions of g at each step.
+    D = (S - step_lp)[..., None] + topv[..., 1:]
+    D = torch.where(step_mask[..., None], D, NEG_INF)
+    max_d = D.reshape(n, -1).amax(dim=1)
+
+    g_norm = torch.where(step_mask, S / _norm_penalty(cfg, pos + 1),
+                         float("inf"))
+    cond_a = (max_d / _norm_penalty(cfg, max_steps)
+              < g_norm.amin(dim=1) - eps_norm)
+
+    comb_g = s_final / n_steps.clamp(min=1).float() ** cfg.BEAM_LENP
+    if ctc_logits is not None and cfg.CTC_FUSION_ALPHA > 0:
+        labels, lab_lens = _labels_from_tokens(tokens, lengths, eos_id,
+                                               dec_offset)
+        comb_g = comb_g + cfg.CTC_FUSION_ALPHA * ctc_alignment_scores(
+            torch.log_softmax(ctc_logits, dim=-1), labels, lab_lens)
+    comp_ub = max_d / max_steps.clamp(min=1).float() ** cfg.BEAM_LENP
+    cond_b = comp_ub < comb_g - eps_norm
+    return path_ok & cond_a & cond_b & (n_steps > 0) & (max_d < 0.0)
+
+
+# ==========================================================================
+# Resumable (windowed) streaming decode
+# ==========================================================================
+# The one-shot loops run to the end and the host replays their history;
+# these run a window of steps at a time, the state (tokens, scores, K/V
+# cache) staying on the device between windows, so that the first records
+# of a line show after one window. They take the one-shot loops' steps
+# (``_beam_step``, ``_greedy_step``), so the records are the same.
+class BeamStreamState(NamedTuple):
+    t: int                   # host: the step the next window starts at
+    bound: int               # host: no line takes a step at or past it
+    tokens: torch.Tensor     # [N, K, L_buf]
+    scores: torch.Tensor     # [N, K]
+    lengths: torch.Tensor    # [N, K]
+    finished: torch.Tensor   # [N, K] bool
+    cache: torch.Tensor      # the K/V cache, rows follow their beams
+    steps_done: torch.Tensor  # [N]
+    max_steps: torch.Tensor  # [N] each line's step budget
+
+
+class GreedyStreamState(NamedTuple):
+    t: int
+    bound: int
+    tokens: torch.Tensor     # [N, L_buf]
+    lengths: torch.Tensor    # [N]
+    score: torch.Tensor      # [N]
+    finished: torch.Tensor   # [N] bool
+    cache: torch.Tensor
+    steps_done: torch.Tensor  # [N]
+    max_steps: torch.Tensor  # [N]
+
+
+def _window_steps(state, w: int) -> range:
+    return range(state.t, min(state.t + w, state.bound))
+
+
+def _stop_early(t_next: int, steps: range, poll_every: int, max_steps,
+                finished) -> bool:
+    """Every ``poll_every`` steps of a window short of its last, one fetch:
+    True once no line takes step ``t_next``."""
+    return bool(poll_every and t_next < steps.stop
+                and (t_next - steps.start) % poll_every == 0
+                and not ((t_next < max_steps) & ~finished).any())
+
+
+def beam_stream_init(model, mem_proj: torch.Tensor, target_len: torch.Tensor,
+                     *, cfg, k_beam: int, l_cap: int, bos_id: int = 1,
+                     step_bound: Optional[int] = None):
+    """The initial beam state and each decoder layer's cross-attention K/V
+    (``decode_prepare``, passed unchanged to every window). ``step_bound``
+    as in ``beam_search``."""
+    n, t_mem, _ = mem_proj.shape
+    l_buf = l_cap + 2
+    dev = mem_proj.device
+    target_len = target_len.to(torch.int32)
+    max_steps = max_decode_steps(cfg, target_len, t_mem).clamp(max=l_cap)
+    tokens = torch.zeros((n, k_beam, l_buf), dtype=torch.int32, device=dev)
+    tokens[:, :, 0] = bos_id
+    scores = torch.full((n, k_beam), NEG_INF, device=dev)
+    scores[:, 0] = 0.0
+    state = BeamStreamState(
+        0, min(_step_bound(max_steps, step_bound), l_cap), tokens, scores,
+        torch.ones((n, k_beam), dtype=torch.int32, device=dev),
+        torch.zeros((n, k_beam), dtype=torch.bool, device=dev),
+        model.init_decode_cache(n * k_beam, l_buf, mem_proj.dtype),
+        torch.zeros((n,), dtype=torch.int32, device=dev), max_steps)
+    return state, model.decode_prepare(mem_proj)
+
+
+def beam_stream_window(model, state: BeamStreamState, cross_kvs,
+                       target_len: torch.Tensor, *, cfg, w: int,
+                       eos_id: int = 2, unk_dec_id: int = 3,
+                       poll_every: int = POLL_EVERY):
+    """Advance every line by up to ``w`` beam steps.
+
+    Returns (state, hist, all_done): ``hist`` = (tokens [N, w, L_buf], len,
+    score, finished [N, w]) holds the best beam after each step of the
+    window (row s is step ``state.t + s``; rows a line did not take stay
+    zero); ``all_done`` is a device bool, no line has a step left.
+
+    Lines take their steps from the window's start on, so the JAX
+    package's window ends after ``steps_done.max()`` steps in all; the loop
+    here may run frozen steps past that (polled every ``poll_every``),
+    which change nothing.
+    """
+    target_len = target_len.to(torch.int32)
+    n, _, l_buf = state.tokens.shape
+    hist = _new_history(n, w, l_buf, state.tokens.device)
+    tokens, scores, lengths, finished, cache, steps_done = state[2:8]
+    t_next = state.t
+    steps = _window_steps(state, w)
+    for t in steps:
+        (tokens, scores, lengths, finished, cache, steps_done,
+         active) = _beam_step(
+            model, cross_kvs, target_len, state.max_steps, t, tokens,
+            scores, lengths, finished, cache, steps_done, cfg=cfg,
+            eos_id=eos_id, unk_dec_id=unk_dec_id)
+        _record(hist, t - state.t, active,
+                _stream_best(cfg, tokens, scores, lengths, finished))
+        t_next = t + 1
+        if _stop_early(t_next, steps, poll_every, state.max_steps,
+                       finished.all(dim=1)):
+            break
+    state = state._replace(t=t_next, tokens=tokens, scores=scores,
+                           lengths=lengths, finished=finished, cache=cache,
+                           steps_done=steps_done)
+    all_done = ~((t_next < state.max_steps) & ~finished.all(dim=1)).any()
+    return state, hist, all_done
+
+
+def greedy_stream_init(model, mem_proj: torch.Tensor,
+                       target_len: torch.Tensor, *, cfg, l_cap: int,
+                       bos_id: int = 1, step_bound: Optional[int] = None):
+    """The initial greedy state and the cross-attention K/V."""
+    n, t_mem, _ = mem_proj.shape
+    l_buf = l_cap + 2
+    dev = mem_proj.device
+    target_len = target_len.to(torch.int32)
+    max_steps = max_decode_steps(cfg, target_len, t_mem).clamp(max=l_cap)
+    tokens = torch.zeros((n, l_buf), dtype=torch.int32, device=dev)
+    tokens[:, 0] = bos_id
+    state = GreedyStreamState(
+        0, min(_step_bound(max_steps, step_bound), l_cap), tokens,
+        torch.ones((n,), dtype=torch.int32, device=dev),
+        torch.zeros((n,), device=dev),
+        torch.zeros((n,), dtype=torch.bool, device=dev),
+        model.init_decode_cache(n, l_buf, mem_proj.dtype),
+        torch.zeros((n,), dtype=torch.int32, device=dev), max_steps)
+    return state, model.decode_prepare(mem_proj)
+
+
+def greedy_stream_window(model, state: GreedyStreamState, cross_kvs,
+                         target_len: torch.Tensor, *, cfg, w: int,
+                         eos_id: int = 2, unk_dec_id: int = 3,
+                         poll_every: int = POLL_EVERY):
+    """Advance every line by up to ``w`` greedy steps (the argmax of the
+    raw logits, as ``greedy_decode``). Returns (state, extra, all_done):
+    ``extra`` [N, w, 2] holds (raw prob, token id) of each step of the
+    window; the rest as ``beam_stream_window``."""
+    target_len = target_len.to(torch.int32)
+    n = state.tokens.shape[0]
+    extra = torch.zeros((n, w, 2), device=state.tokens.device)
+    tokens, lengths, score, finished, cache, steps_done = state[2:8]
+    t_next = state.t
+    steps = _window_steps(state, w)
+    for t in steps:
+        (tokens, lengths, score, finished, steps_done, active, best_prob,
+         best_id, _) = _greedy_step(
+            model, cross_kvs, target_len, state.max_steps, t, tokens,
+            lengths, score, finished, cache, steps_done, cfg=cfg,
+            eos_id=eos_id, unk_dec_id=unk_dec_id)
+        extra[:, t - state.t] = torch.where(
+            active[:, None], torch.stack([best_prob, best_id.float()], -1),
+            extra[:, t - state.t])
+        t_next = t + 1
+        if _stop_early(t_next, steps, poll_every, state.max_steps, finished):
+            break
+    state = state._replace(t=t_next, tokens=tokens, lengths=lengths,
+                           score=score, finished=finished,
+                           steps_done=steps_done)
+    all_done = ~((t_next < state.max_steps) & ~finished).any()
+    return state, extra, all_done
 
 
 def pick_l_cap(cfg, max_steps_host: int, buckets=None) -> int:

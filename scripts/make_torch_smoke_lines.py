@@ -32,7 +32,22 @@ writes ``kiri_tpu_torch/assets/smoke_lines.npz`` with 64 bilingual lines
 * ``auto_margin_{f32,bf16}``: the smallest ``|conf - AUTO_CONF_THRESHOLD|``
   over the lines. ``"auto"`` branches on that comparison, so the script fails
   if a line lies within 1e-3 of the threshold, where a last-digit difference
-  between two implementations could send it the other way.
+  between two implementations could send it the other way;
+* ``stream_records_f32``: a JSON string ``{method: [records of each line]}``
+  of ``stream_records_batch(imgs, m)`` for ``"ctc"``, ``"decoder"`` and
+  ``"beam"`` (one-shot, float32), and ``stream_{ctc,decoder,beam}_texts_bf16``
+  the text of each line's last record in bfloat16;
+* ``noisy_crops_flat`` / ``noisy_crop_shapes`` / ``noisy_sharpen``: 16 of the
+  crops degraded from a seed (salt and pepper, gaussian noise, low contrast,
+  and downscaled under 36 px with noise), with a sharpen mask and
+  ``noisy_src``, the index of the line each came from;
+  ``noisy_enhanced_flat`` / ``noisy_small_noisy``: ``enhance_lines`` of them
+  (each crop's own pixels, concatenated) and its small-noisy flags;
+* ``crops_enhance_{ctc,decoder}_{texts,conf}_{f32,bf16}``:
+  ``recognize_crops(noisy_crops, m, enhance=True, sharpen=noisy_sharpen)``;
+* ``batch_spec_beam_{texts,conf}_f32``: ``"beam"`` under ``SPEC_BEAM=True``
+  on the lines at full width (``recognize_batch(imgs, "beam")``, no widths:
+  the JAX package's width-bucketed path ignores ``SPEC_BEAM``).
 
 The arrays the file already holds are kept as they are: the script fails if a
 regenerated one differs from the committed one. After a change of the
@@ -40,6 +55,7 @@ renderer or the checkpoint, delete the file first.
 """
 from __future__ import annotations
 
+import json
 import random
 import sys
 import tempfile
@@ -57,15 +73,48 @@ OUT = REPO / "kiri_tpu_torch" / "assets" / "smoke_lines.npz"
 AUTO_MARGIN_MIN = 1e-3
 AUTO_ESCALATE_THRESHOLD = 0.98505
 AUTO_ESCALATE_MARGIN_MIN = 2e-4
+N_NOISY = 16
+
+
+def noisy_crops(crops, seed=SEED):
+    """The 16 narrowest crops, each degraded one of four ways in turn, a
+    sharpen mask (every third) and the indices of the crops they came
+    from."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    src = sorted(range(len(crops)), key=lambda i: crops[i].shape[1])[:N_NOISY]
+    out = []
+    for k, i in enumerate(src):
+        c = crops[i].astype(np.float32)
+        kind = k % 4
+        if kind == 0:                                   # salt and pepper
+            m = rng.random(c.shape)
+            c = np.where(m < 0.004, 0.0, np.where(m > 0.996, 255.0, c))
+        elif kind == 1:                                 # gaussian noise
+            c = c + rng.normal(0, 20, c.shape)
+        elif kind == 2:                                 # low contrast
+            c = c / 255.0 * 90 + 90
+        else:                                           # small and noisy
+            h = int(rng.integers(22, 34))
+            w = max(8, round(c.shape[1] * h / c.shape[0]))
+            small = Image.fromarray(crops[i]).resize((w, h), Image.BILINEAR)
+            c = (np.asarray(small, np.float32)
+                 + rng.normal(0, 18, (h, w)))
+        out.append(np.clip(c, 0, 255).astype(np.uint8))
+    return out, np.arange(len(out)) % 3 == 1, np.asarray(src, np.int32)
 
 
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
     from kiri_tpu.data.synth import (DatasetGenerator, ImageRenderer,
                                      sample_khmer_text, sample_text)
     from kiri_tpu.engine import RecognizerEngine
+    from kiri_tpu.kernels.resize import enhance_lines, pack_crops
     from kiri_tpu.ops.preprocess import preprocess_crops
     from kiri_tpu.tokenizer import CharTokenizer
     from kiri_tpu.train.checkpoints import find_vocab_file, load_checkpoint
@@ -103,6 +152,20 @@ def main() -> None:
         "widths": widths,
         "texts": np.asarray(texts),
     }
+    noisy, sharpen, noisy_src = noisy_crops(crops)
+    buf, sizes = pack_crops(noisy)
+    enhanced, small_noisy = (np.asarray(a) for a in enhance_lines(
+        jnp.asarray(buf), jnp.asarray(sizes), sharpen=jnp.asarray(sharpen)))
+    out.update({
+        "noisy_crops_flat": np.concatenate([c.ravel() for c in noisy]),
+        "noisy_crop_shapes": np.asarray([c.shape for c in noisy], np.int32),
+        "noisy_sharpen": sharpen,
+        "noisy_src": noisy_src,
+        "noisy_enhanced_flat": np.concatenate(
+            [e[:h, :w].ravel() for e, (h, w) in zip(enhanced, sizes)]),
+        "noisy_small_noisy": small_noisy,
+    })
+    stream_f32 = {}
     for dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
         engine = RecognizerEngine(variables, cfg.replace(COMPUTE_DTYPE=dtype),
                                   tok)
@@ -122,7 +185,21 @@ def main() -> None:
             tok)
         runs.append(("batch_auto_escalated",
                      eng_esc.recognize_batch(imgs, "auto", widths=widths)))
+        for m in ("ctc", "decoder", "beam"):
+            recs = [list(r) for r in engine.stream_records_batch(imgs, m)]
+            if tag == "f32":
+                stream_f32[m] = recs
+            else:
+                out[f"stream_{m}_texts_bf16"] = np.asarray(
+                    [r[-1]["text"] for r in recs])
+        for m in ("ctc", "decoder"):
+            runs.append((f"crops_enhance_{m}", engine.recognize_crops(
+                noisy, m, enhance=True, sharpen=sharpen)))
         if tag == "f32":
+            eng_sb = RecognizerEngine(
+                variables, engine.cfg.replace(SPEC_BEAM=True), tok)
+            runs.append(("batch_spec_beam",
+                         eng_sb.recognize_batch(imgs, "beam")))
             eng1 = RecognizerEngine(
                 variables, engine.cfg.replace(SPEC_MAX_ROUNDS=1), tok)
             runs.append(("batch_decoder_rounds1",
@@ -146,6 +223,8 @@ def main() -> None:
                 f"AUTO_ESCALATE_THRESHOLD; pick another threshold")
     out["auto_escalate_threshold"] = np.asarray(AUTO_ESCALATE_THRESHOLD,
                                                 np.float64)
+    out["stream_records_f32"] = np.asarray(json.dumps(stream_f32,
+                                                      ensure_ascii=False))
     if OUT.exists():
         with np.load(OUT) as old:
             changed = [k for k in old.files
@@ -160,6 +239,9 @@ def main() -> None:
           f"{n_kh} Khmer, crop heights {sorted(set(c.shape[0] for c in crops))}"
           f", max crop width {max(c.shape[1] for c in crops)}, "
           f"clipped {int((widths >= cfg.IMG_W).sum())}")
+    print(f"noisy crops: {len(noisy)}, heights "
+          f"{sorted(set(c.shape[0] for c in noisy))}, small noisy "
+          f"{int(small_noisy.sum())}, sharpened {int(sharpen.sum())}")
     for tag in ("f32", "bf16"):
         print(tag, "auto margin", float(out[f"auto_margin_{tag}"]),
               "escalated", int((out[f"batch_conf_{tag}"]
@@ -167,8 +249,10 @@ def main() -> None:
               "and under the raised threshold",
               int((out[f"batch_conf_{tag}"] < AUTO_ESCALATE_THRESHOLD).sum()))
         for key in sorted(k for k in out if k.endswith(f"_texts_{tag}")):
+            truth = ([texts[i] for i in noisy_src] if "enhance" in key
+                     else texts)
             print(tag, key, "exact",
-                  sum(a == b for a, b in zip(out[key], texts)))
+                  sum(a == b for a, b in zip(out[key], truth)))
 
 
 if __name__ == "__main__":

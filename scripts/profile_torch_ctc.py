@@ -1,11 +1,13 @@
 """Where the time goes in kiri_tpu_torch's recognition paths on one GPU.
 
     python3 scripts/profile_torch_ctc.py [--method ctc|decoder|beam|auto]
-        [--batch 128] [--reps 10] [--out F]
+        [--batch 128] [--reps 10] [--stream W] [--out F]
 
 Drives ``RecognizerEngine.recognize_batch(imgs, method, widths)`` (bf16, the
 committed checkpoint, the committed smoke lines repeated to ``--batch``
-lines) and ``recognize_crops(crops, method)``, and reports for each:
+lines) and ``recognize_crops(crops, method)`` or, with ``--stream W``,
+``stream_records_batch(imgs, method)`` one-shot and with ``window=W`` (every
+record read), and reports for each:
 
 * the host-clock time per call (texts fetched, so the device has finished);
 * under ``torch.profiler``, the device time summed by kernel name, the
@@ -43,6 +45,8 @@ def main() -> int:
                     choices=("ctc", "decoder", "beam", "auto"))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--stream", type=int, default=None, metavar="W",
+                    help="profile streaming, one-shot and in windows of W")
     ap.add_argument("--out", type=Path,
                     default=REPO / "output" / "profile_torch_ctc.json")
     args = ap.parse_args()
@@ -74,6 +78,13 @@ def main() -> int:
         "recognize_batch": lambda: eng.recognize_batch(imgs, method, widths),
         "recognize_crops": lambda: eng.recognize_crops(crops, method),
     }
+    if args.stream:
+        def stream(w):
+            return lambda: [list(r) for r in eng.stream_records_batch(
+                imgs, method, window=w)]
+        paths = {"stream_records_batch": stream(None),
+                 f"stream_records_batch window={args.stream}":
+                     stream(args.stream)}
 
     # Sections of the decoder paths: [ms, calls], summed over a pass.
     sections = {}
@@ -99,7 +110,8 @@ def main() -> int:
         """One pass of ``reps`` calls with the sections timed; the module's
         functions are patched for the pass only."""
         names = ("spec_decode", "beam_search", "_beam_step",
-                 "ctc_alignment_scores")
+                 "ctc_alignment_scores", "greedy_decode",
+                 "beam_stream_window", "greedy_stream_window")
         saved = {n: getattr(D, n) for n in names}
         heads = eng.model.decoder_forward_heads
         sections.clear()
@@ -121,7 +133,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     report = {"device": smi, "method": method, "batch": args.batch,
-              "reps": args.reps, "paths": {}}
+              "reps": args.reps, "stream": args.stream, "paths": {}}
     for name, fn in paths.items():
         for _ in range(3):
             fn()

@@ -87,20 +87,22 @@ def test_empty_and_encode_batch(engine, smoke):
     assert tuple(memp.shape) == (4, 160, 256) and tuple(ids.shape) == (4, 160)
 
 
-def test_later_slices_raise(engine, smoke):
+def test_enhance_and_spec_beam_run_bad_arguments_raise(engine, smoke):
+    """``enhance=True`` and ``cfg.SPEC_BEAM`` run (they raised before the
+    port had them); an unknown method and ``upload_bits=3`` raise
+    ValueError."""
     d, crops = smoke
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.recognize_crops(crops[:2], "ctc", enhance=True)
+    res = engine.recognize_crops(crops[:2], "ctc", enhance=True)
+    assert len(res) == 2 and all(isinstance(t, str) for t, _ in res)
     spec_beam = RecognizerEngine(engine.model,
                                  engine.cfg.replace(SPEC_BEAM=True),
                                  engine.tok, device="cpu")
-    with pytest.raises(NotImplementedError, match="beam_device_spec"):
-        spec_beam.recognize_batch(d["imgs"][:2], "beam")
-    with pytest.raises(NotImplementedError, match="beam_device_spec"):
-        spec_beam.recognize_crops(crops[:2], "beam")
+    assert len(spec_beam.recognize_batch(d["imgs"][:2], "beam")) == 2
     assert len(spec_beam.recognize_batch(d["imgs"][:2], "ctc")) == 2
     with pytest.raises(ValueError, match="method"):
         engine.recognize_batch(d["imgs"][:2], "greedy")
+    with pytest.raises(ValueError, match="method"):
+        engine.recognize_crops(crops[:2], "warp", enhance=True)
     with pytest.raises(ValueError):
         RecognizerEngine(engine.model, engine.cfg, engine.tok, device="cpu",
                          upload_bits=3)
