@@ -34,7 +34,24 @@
    kernel's linear resize; float32 texts equal the stored ones); and "beam"
    under ``SPEC_BEAM=True`` (the step-loop beam's texts, with LM fusion on,
    where no line certifies, and off, where most do);
-5. prints one throughput line per method, one line per streamed method with
+5. the pages phase: ``OCR`` on the card with both committed checkpoints
+   (``models/model.safetensors``, ``models/detector.safetensors``) over the
+   committed pages (``kiri_tpu_torch/assets/smoke_pages.npz``), each run with
+   the counters at 0: the DB u16 map of the stored page within 8 counts of
+   kiri_tpu's; every page the stored number of line boxes, each within 1 px;
+   float32 "fast" and "accurate" (and "fast" with ``preprocess="device"``,
+   which launches the preprocess kernel, and with ``enhance=True`` on the
+   noisy page) texts equal kiri_tpu's stored texts on identical boxes,
+   confidences within 1e-3; the pooled ``process_documents`` equal to the
+   per-page results; bf16 line CER per script within the gates (or, where
+   kiri_tpu's own stored answers read the pages worse, no worse than them by
+   more than 0.005), with ``end2end_cer`` and ``doc_cer``; the 64 smoke
+   crops through the cv2-free host preprocessing against the committed
+   lines; then pages/s of ``process_documents`` (32 pages), the p50 of
+   ``extract_text``, ms per stage, the detection split, the DB forward per
+   canvas bucket and the device's busy share of a page, each with the
+   card's name and power limit;
+6. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -44,6 +61,7 @@ needs the rest of the repository beside it and a CUDA device.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -76,6 +94,10 @@ CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" and "beam"
 CER_MAX_DECODER = 0.03    # ... and its "decoder" row
 TOL_CONF_F32 = 1e-3       # float32 confidences against kiri_tpu's
 STREAM_WINDOW = 8
+PAGE_MAP_TOL = 8          # u16 counts of the DB map (1.2e-4)
+PAGE_BOX_TOL = 1          # px, a line box against kiri_tpu's
+PAGES_TIMED = 32          # pages of a timed process_documents call
+PAGE_CER_SLACK = 0.005    # bf16 page line CER above kiri_tpu's own
 STREAM_WINDOWS_TIMED = (1, 4, 8, 16, 32)
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
@@ -400,37 +422,41 @@ def preprocess_phase(torch, np, crops):
     }
 
 
+def drive_run(total, by_run, name, fn, needs):
+    """Run ``fn`` with the launch counters at 0, read them just after into
+    ``by_run[name]`` and add them to ``total``, and hold each kernel of
+    ``needs`` to at least one launch in it (the stems' in threes)."""
+    from kiri_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    by_run[name] = {k: v for k, v in counts.items() if v}
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    # Both stems launch 3 kernels an encode.
+    check(all(counts[k] > 0 and (counts[k] % 3 == 0 or "stem" not in k)
+              for k in needs),
+          f"{name}: {len(res)} results in {dt:.3f} s, launches "
+          f"{by_run[name]} (needs {', '.join(needs)}; the stem's in "
+          f"threes)")
+    return res
+
+
 def main_path_phase(torch, np, model, cfg, tok, d, crops):
     """Every path of the engine over the smoke lines, in bf16 against the
     ground truth and in float32 against kiri_tpu's stored answers, each run
     with the launch counters set to 0 just before it and read just after.
     Returns each kernel's launches, in all and by run."""
     from kiri_tpu_torch.engine import RecognizerEngine
-    from kiri_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     imgs, widths = d["imgs"], d["widths"]
     texts = [str(t) for t in d["texts"]]
     is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
     total, by_run = {}, {}
-
-    def drive(name, fn, needs):
-        """Run ``fn`` with the counters at 0 and hold each kernel of
-        ``needs`` to at least one launch in it."""
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        dt = time.perf_counter() - t0
-        counts = launch_counts()
-        by_run[name] = {k: v for k, v in counts.items() if v}
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-        # Both stems launch 3 kernels an encode.
-        check(all(counts[k] > 0 and (counts[k] % 3 == 0 or "stem" not in k)
-                  for k in needs),
-              f"{name}: {len(res)} lines in {dt:.3f} s, launches "
-              f"{by_run[name]} (needs {', '.join(needs)}; the stem's in "
-              f"threes)")
-        return res
+    drive = functools.partial(drive_run, total, by_run)
 
     def runs_of(eng, stem):
         """(key in the fixture, CER limit, thunk, kernels it must launch)."""
@@ -740,6 +766,271 @@ def spec_beam_phase(d, model, cfg32, tok, eng32, drive):
           f"certified")
 
 
+def _stored_agree(got_pages, stored_pages):
+    """(results compared, texts equal, largest confidence difference, the
+    (page, line) of differing texts) over the results whose box and line
+    number equal a stored result's."""
+    n = same = 0
+    worst, bad = 0.0, []
+    for i, (got, want) in enumerate(zip(got_pages, stored_pages)):
+        by_key = {(r["line_number"], tuple(r["box"])): r for r in want}
+        for r in got:
+            w = by_key.get((r["line_number"], tuple(r["box"])))
+            if w is None:
+                continue
+            n += 1
+            worst = max(worst, abs(r["confidence"] - w["confidence"]))
+            if r["text"] == w["text"]:
+                same += 1
+            else:
+                bad.append((i, r["line_number"]))
+    return n, same, worst, bad
+
+
+def pages_phase(torch, np, drive, card):
+    """``OCR`` on the card over the committed pages at full width with both
+    committed checkpoints: the DB map, the boxes, float32 texts against
+    kiri_tpu's stored ones, bf16 CER against the ground truth, the pooled
+    ``process_documents``, device preprocessing and enhancement, and the
+    host preprocessing of the smoke lines without cv2; then pages/s, the
+    p50 of ``extract_text``, ms per stage, the DB forward per canvas and
+    the device's busy share of a page."""
+    from kiri_tpu_torch.evalpage import is_khmer, score_pages
+    from kiri_tpu_torch.ops.preprocess import (invert_if_dark,
+                                               preprocess_crops, to_gray)
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.smoke import load_smoke_lines, load_smoke_pages
+
+    fx = load_smoke_pages()
+    pages, stored = fx["pages"], fx["results"]
+    imgs = [p["image"] for p in pages]
+    ckpt = str(REPO / "models" / "model.safetensors")
+    det_path = str(REPO / "models" / "detector.safetensors")
+
+    def ocr(**kw):
+        return OCR(ckpt, det_model_path=det_path, device="cuda", **kw)
+
+    bf16 = {m: ocr(decode_method=m, use_fp16=True)
+            for m in ("fast", "accurate")}
+    f32 = {m: ocr(decode_method=m, use_fp16=False)
+           for m in ("fast", "accurate")}
+    check(f32["fast"].engine.dtype == torch.float32
+          and bf16["fast"].engine.dtype == torch.bfloat16,
+          "pages: OCR(use_fp16=False) after OCR(use_fp16=True) on one "
+          "checkpoint runs float32 (the model cache is keyed on the dtype)")
+    det = f32["fast"].detector
+    db = det.db_detector
+
+    # The detector's u16 map on the stored page.
+    canvas, _, _ = db._resize_image(invert_if_dark(to_gray(
+        imgs[fx["prob_page"]])))
+    wire = db.forward_wire(canvas[None]).cpu().numpy()[0]
+    dmap = np.abs(wire.astype(np.int64) - fx["prob_u16"])
+    check(wire.shape == fx["prob_u16"].shape and dmap.max() <= PAGE_MAP_TOL,
+          f"pages: DB u16 map of page {fx['prob_page']} (canvas "
+          f"{canvas.shape}) within {int(dmap.max())} counts of kiri_tpu's "
+          f"(tol {PAGE_MAP_TOL}); {int((dmap > 0).sum())} of {dmap.size} "
+          f"values differ")
+
+    # Boxes against the stored ones.
+    ok, n_boxes, n_diff, quads_same = True, 0, 0, 0
+    for p in pages:
+        got = [b.bbox for b in det.detect_lines_objects(p["image"])]
+        ok &= len(got) == len(p["boxes"])
+        n_boxes += len(got)
+        for g, w in zip(got, p["boxes"]):
+            ok &= max(abs(a - b) for a, b in zip(g, w)) <= PAGE_BOX_TOL
+            n_diff += tuple(g) != tuple(w)
+        quads = db.detect_text(p["image"])
+        quads_same += len(quads) == len(p["det_quads"]) and all(
+            np.array_equal(q, w) for (q, _), w in zip(quads, p["det_quads"]))
+    check(ok, f"pages: {n_boxes} line boxes on {len(pages)} pages, each "
+          f"page the stored count, every box within {PAGE_BOX_TOL} px of "
+          f"kiri_tpu's; {n_diff} boxes not identical; DB quads identical on "
+          f"{quads_same}/{len(pages)} pages")
+
+    # float32 against kiri_tpu's stored results, on identical boxes.
+    def hold_f32(run, res):
+        n, same, worst, bad = _stored_agree(res, stored[run])
+        check(n > 0 and not bad and worst <= TOL_CONF_F32,
+              f"pages f32 {run}: {same}/{n} texts on identical boxes equal "
+              f"kiri_tpu's stored texts ({sum(map(len, res))} lines in all), "
+              f"max |conf diff| {worst:.2e} (tol {TOL_CONF_F32:g})"
+              + (f"; first differences {bad[:3]}" if bad else ""))
+
+    per_page = {}
+    for m, o in f32.items():
+        per_page[m] = drive(f"pages f32 {m}", lambda: [
+            o.process_document(im) for im in imgs], ("stem_fused_f32",))
+        hold_f32(f"{m}_f32", per_page[m])
+    dev = ocr(decode_method="fast", use_fp16=False, preprocess="device")
+    hold_f32("fast_f32_device", drive(
+        "pages f32 fast preprocess=device", lambda: [
+            dev.process_document(im) for im in imgs],
+        ("stem_fused_f32", "preprocess_lines")))
+    noisy = next(i for i, p in enumerate(pages) if p["spec"][3] == "noisy")
+    enh = ocr(decode_method="fast", use_fp16=False, enhance=True)
+    hold_f32("fast_f32_enhance", drive(
+        "pages f32 fast enhance", lambda: [
+            enh.process_document(im) if i == noisy else []
+            for i, im in enumerate(imgs)], ("stem_fused_f32",)))
+    pooled = drive("pages f32 fast process_documents",
+                   lambda: f32["fast"].process_documents(imgs),
+                   ("stem_fused_f32",))
+    n, same, worst, bad = _stored_agree(pooled, per_page["fast"])
+    check(n == sum(map(len, per_page["fast"])) == sum(map(len, pooled))
+          and not bad and worst <= TOL_CONF_F32,
+          f"pages f32 fast: process_documents over {len(imgs)} pages gives "
+          f"the per-page boxes and texts on {same}/{n} lines, max |conf "
+          f"diff| {worst:.2e}")
+
+    # bf16 against the ground truth: each script's line CER within the gate,
+    # or, where kiri_tpu's stored answers read the pages worse than the
+    # gate, within PAGE_CER_SLACK of kiri_tpu's.
+    gates = {"fast": CER_MAX, "accurate": CER_MAX_DECODER}
+    scripts = {"Khmer": is_khmer, "English": lambda t: not is_khmer(t)}
+    for m, o in bf16.items():
+        res = drive(f"pages bf16 {m}", lambda: [
+            o.process_document(im) for im in imgs], ("stem_fused",))
+        every = score_pages(pages, res)
+        ours = {k: score_pages(pages, res, f) for k, f in scripts.items()}
+        ref = {k: score_pages(pages, stored[f"{m}_bf16"], f)
+               for k, f in scripts.items()}
+        limit = {k: max(gates[m], ref[k]["matched_cer"] + PAGE_CER_SLACK)
+                 for k in scripts}
+        n, same, _, _ = _stored_agree(res, stored[f"{m}_bf16"])
+        check(all(ours[k]["matched_cer"] <= limit[k] for k in scripts),
+              f"pages bf16 {m}: line CER "
+              + ", ".join(f"{k} {ours[k]['matched_cer']:.4f} (max "
+                          f"{limit[k]:.4f}; kiri_tpu "
+                          f"{ref[k]['matched_cer']:.4f}), end2end "
+                          f"{ours[k]['end2end_cer']:.4f}" for k in scripts)
+              + f"; end2end_cer {every['end2end_cer']:.4f}, doc_cer "
+              f"{every['doc_cer']:.4f} (kiri_tpu "
+              f"{score_pages(pages, stored[f'{m}_bf16'])['doc_cer']:.4f}), "
+              f"line recall {every['line_recall']:.4f} over "
+              f"{every['gt_lines']} lines; {same}/{n} texts equal kiri_tpu's "
+              f"bf16 texts")
+
+    # Host preprocessing without cv2 on the smoke lines.
+    d, crops = load_smoke_lines()
+    eng32 = f32["fast"].engine
+    pimgs, pw = preprocess_crops(eng32.cfg, crops)
+    diff = np.abs(pimgs.astype(np.int64) - d["imgs"])
+    agree = {}
+    for m, key in (("ctc", "batch_texts_f32"),
+                   ("decoder", "batch_decoder_texts_f32")):
+        res = drive(f"pages f32 smoke lines host-preprocessed {m}",
+                    lambda: eng32.recognize_batch(pimgs, m, pw),
+                    ("stem_fused_f32",))
+        agree[m] = sum(t == str(w) for (t, _), w in zip(res, d[key]))
+    check(diff.max() <= 1 and np.array_equal(pw, d["widths"])
+          and all(v == len(crops) for v in agree.values()),
+          f"host preprocessing without cv2: the {len(crops)} smoke crops give "
+          f"the committed imgs but {int((diff > 0).sum())} pixels in "
+          f"{int(diff.any(axis=(1, 2)).sum())} lines, by at most "
+          f"{int(diff.max())} level (cv2's IPP cubic); float32 texts equal "
+          f"kiri_tpu's stored ones: ctc {agree['ctc']}/{len(crops)}, decoder "
+          f"{agree['decoder']}/{len(crops)}")
+
+    # Times, bf16 (the checkpoint's dtype), host clock unless named.
+    many = [imgs[i % len(imgs)] for i in range(PAGES_TIMED)]
+    for m, o in bf16.items():
+        o.process_documents(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.process_documents(many)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        one = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            o.extract_text(imgs[0])
+            one.append((time.perf_counter() - t0) * 1e3)
+        stages = {}
+        for im in imgs:
+            o.process_document(im)
+            for k, v in o.last_timer.totals.items():
+                stages[k] = stages.get(k, 0.0) + v * 1e3 / len(imgs)
+        print(f"pages {m} (bf16; {card}): process_documents of "
+              f"{PAGES_TIMED} pages {PAGES_TIMED / dt:.2f} pages/s "
+              f"({dt * 1e3 / PAGES_TIMED:.2f} ms a page); extract_text of "
+              f"page 0 p50 {sorted(one[2:])[3]:.2f} ms (7 calls after 2); "
+              f"stages, mean ms a page over {len(imgs)} pages: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()),
+              flush=True)
+    # Detection split: the map (resize, upload, forward, fetch) against the
+    # host postprocessing; then the forward per canvas bucket and a whole
+    # page, host clock against the device's busy time.
+    fwd = post = 0.0
+    canvases = {}
+    for im in imgs:
+        gray = invert_if_dark(to_gray(im))
+        t0 = time.perf_counter()
+        pred, (_, _, oh, ow) = db.predict_maps(gray)
+        t1 = time.perf_counter()
+        det._split_column_merges(im, det._process_boxes_objects(
+            db._padded_sorted(*db._finish_page(pred, ow, oh)), merge=False,
+            skip_sort=True))
+        t2 = time.perf_counter()
+        fwd, post = fwd + (t1 - t0), post + (t2 - t1)
+        c = db._resize_image(gray)[0]
+        canvases.setdefault(c.shape, c)
+    print(f"pages detect split (host clock, mean ms a page over {len(imgs)} "
+          f"pages; {card}): map {fwd * 1e3 / len(imgs):.2f} (resize, upload, "
+          f"DB forward, fetch), host postprocessing "
+          f"{post * 1e3 / len(imgs):.2f} (boxes, padding, order, column "
+          f"split)", flush=True)
+    for shape, c in sorted(canvases.items()):
+        timed = {nb: host_and_device_ms(torch, lambda: db.forward_wire(
+            np.stack([c] * nb)).cpu()) for nb in (1, 8)}
+        print(f"DB forward_wire {shape[0]}x{shape[1]} (float32, TF32 off; "
+              f"host ms a call with the upload and fetch / device busy ms "
+              f"under torch.profiler; {card}): "
+              + ", ".join(f"batch {nb} {h:.3f} / {d:.3f}"
+                          for nb, (h, d) in timed.items()), flush=True)
+    for m, o in bf16.items():
+        h, d = host_and_device_ms(torch, lambda: o.process_documents(imgs),
+                                  reps=2)
+        print(f"pages {m} (bf16) process_documents of {len(imgs)} pages: "
+              f"{h:.2f} ms host, device busy {d:.2f} ms ({100 * d / h:.1f}%; "
+              f"{card})", flush=True)
+
+
+def host_and_device_ms(torch, fn, reps: int = 5):
+    """(host ms a call, synchronized; the device's busy ms a call: the sum
+    of device-side events under torch.profiler), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return host, busy / 1e3 / reps
+
+
+def card_name_power() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+                else f"nvidia-smi failed: {smi.stderr.strip()}")
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -763,6 +1054,7 @@ def main() -> int:
     from kiri_tpu_torch.smoke import load_smoke_lines
     from kiri_tpu_torch.tokenizer import CharTokenizer
 
+    card = card_name_power()
     t0 = time.perf_counter()
     try:
         built = build.build()
@@ -786,19 +1078,13 @@ def main() -> int:
     kernels = [*stem_phase(torch, np, model, d["imgs"]),
                preprocess_phase(torch, np, crops)]
     counts, by_run = main_path_phase(torch, np, model, cfg, tok, d, crops)
+    pages_phase(torch, np, functools.partial(drive_run, counts, by_run), card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()
                                 if k["name"] in c}
 
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-        print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-              else f"nvidia-smi failed: {smi.stderr.strip()}")
-    except (OSError, subprocess.TimeoutExpired) as e:
-        print(f"nvidia-smi failed: {e}")
+    print(card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)

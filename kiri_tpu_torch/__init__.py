@@ -1,7 +1,18 @@
 """kiri_tpu_torch: the PyTorch + CUDA port of kiri_tpu for NVIDIA Hopper.
 
-This slice runs line recognition in CTC mode (``engine.RecognizerEngine``)
-with the committed checkpoint, through hand-written CUDA kernels for the
-line preprocessing and the conv stem. The package imports neither ``jax``
-nor ``kiri_tpu``.
+``OCR`` (``pipeline.py``) reads pages: DB detection (``detect/``, the net on
+the card and the geometry on the host, ``native/``), crops preprocessed on
+the host (``ops/preprocess.py``, cv2-free) or by the preprocess kernel, and
+``engine.RecognizerEngine`` in every decode method, whose encoder runs the
+hand-written stem kernels. The package imports neither ``jax`` nor
+``kiri_tpu``; ``OCR`` is imported on first use, so ``import kiri_tpu_torch``
+works without CUDA.
 """
+
+
+def __getattr__(name):
+    if name == "OCR":
+        from .pipeline import OCR
+
+        return OCR
+    raise AttributeError(f"module 'kiri_tpu_torch' has no attribute {name!r}")

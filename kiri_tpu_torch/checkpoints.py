@@ -65,6 +65,13 @@ def load_checkpoint(path: Union[str, Path], device=None
     ``device=None`` means the card.
     """
     dev = resolve_device(device)
+    cfg, meta = read_meta(path)
+    return build_model(read_safetensors(path), cfg).to(dev), cfg, meta
+
+
+def read_meta(path: Union[str, Path]) -> Tuple[CFG, Dict[str, Any]]:
+    """(cfg, meta dict) of ``<name>.safetensors`` from its
+    ``<name>_meta.json``."""
     path = str(path)
     if not path.endswith(".safetensors"):
         raise ValueError(f"{path}: only .safetensors checkpoints are read")
@@ -73,8 +80,7 @@ def load_checkpoint(path: Union[str, Path], device=None
         raise FileNotFoundError(f"{meta_path} not found: the model's "
                                 "configuration is read from it")
     meta = json.loads(meta_path.read_text())
-    cfg = CFG.from_dict(meta.get("config", {}))
-    return build_model(read_safetensors(path), cfg).to(dev), cfg, meta
+    return CFG.from_dict(meta.get("config", {})), meta
 
 
 def find_vocab_file(vocab_path: str, model_path: str) -> Optional[str]:

@@ -1,0 +1,302 @@
+"""Text-detection facade, DB route (the port of ``kiri_tpu/detect/
+__init__.py``).
+
+``TextDetector(method="db")`` turns the DB detector's quads into ``TextBox``
+rows in reading order and splits boxes that bridge a column gutter. Unlike
+the JAX package it never falls back to another detector: a detector that
+fails to load or to run raises. CRAFT, the classic-CV detector, deskew and
+the word, block and character levels are not ported yet (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..ops.preprocess import to_gray
+from ..utils.imageio import imread_bgr
+from .base import DetectionLevel, TextBox
+from .db import DBDetector
+
+_DB_KEYS = ("det_db_thresh", "det_db_box_thresh", "det_db_unclip_ratio",
+            "max_side_len", "min_size", "binary_threshold",
+            "polygon_threshold", "unclip_ratio", "max_candidates",
+            "padding_pct", "padding_px", "padding_y_pct", "padding_y_px",
+            "line_tolerance_ratio", "debug", "det_map_downsample")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class TextDetector:
+    """Detector facade over the DB backend. ``device`` (None means the card)
+    goes to the DB net."""
+
+    def __init__(self, method: str = "db", model_path: Optional[str] = None,
+                 device=None, **kwargs):
+        self.conf_threshold = kwargs.pop("conf_threshold", 0.25)
+        if kwargs.pop("deskew", False):
+            raise _not_ported("deskew", "ROADMAP queue 1: deskew")
+        self.deskew = False
+        kwargs.pop("deskew_min_angle", None)
+        self.last_skew_angle = 0.0
+        #: Split detected boxes that bridge an aligned column gutter
+        #: (``_split_column_merges``); off keeps the backend's boxes.
+        self.split_columns = kwargs.pop("split_columns", True)
+        # The deskew state the pipeline reads; never set in this slice.
+        self.last_deskewed_image = None
+        self.last_deskew_boxes = None
+        self.last_deskew_angle = 0.0
+        if method != "db":
+            raise _not_ported(f"method={method!r}", "ROADMAP queue 1: CRAFT "
+                              "and the classic-CV detector")
+        self.method = method
+        self.kwargs = kwargs
+        if model_path is None:
+            model_path = self._find_default_model()
+        if not (model_path and Path(model_path).exists()):
+            raise FileNotFoundError(f"DB model not found: {model_path}")
+        self.model_path = str(model_path)
+        self.db_detector = DBDetector(
+            self.model_path, device=device,
+            **{k: v for k, v in kwargs.items() if k in _DB_KEYS})
+
+    def _find_default_model(self) -> Optional[str]:
+        """``detector.safetensors`` in ./models, ., or the checkout's
+        models/ (no download)."""
+        fname = "detector.safetensors"
+        repo_root = Path(__file__).resolve().parents[2]
+        for p in (Path("models") / fname, Path(fname),
+                  repo_root / "models" / fname):
+            if p.exists():
+                return str(p)
+        return None
+
+    @staticmethod
+    def _load_image(image) -> Optional[np.ndarray]:
+        """Path or array -> gray u8 (None when a path cannot be decoded):
+        the classic-CV detector's loader, without cv2."""
+        if isinstance(image, (str, Path)):
+            img = imread_bgr(image)
+            if img is None:
+                return None
+        else:
+            img = np.asarray(image)
+        return to_gray(img)
+
+    # --------------------------------------------------------------- lines
+    def detect_lines(self, image) -> List[Tuple[int, int, int, int]]:
+        return [b.bbox for b in self.detect_lines_objects(image)]
+
+    def detect_lines_objects(self, image) -> List[TextBox]:
+        detected = self.db_detector.detect_text(image)
+        # DB results arrive sorted in reading order.
+        boxes = self._process_boxes_objects(detected, merge=False,
+                                            skip_sort=True)
+        return self._split_column_merges(image, boxes)
+
+    def iter_lines_objects_batch(self, images):
+        """Yield ``(page index, TextBox list)`` over many pages in the order
+        the batched forwards finish (NOT input order); per-page results are
+        those of ``detect_lines_objects``.
+
+        ``self.last_batch_state[i]`` is filled when page ``i`` is yielded
+        with ``(deskewed image, deskew boxes, applied angle)``, which is
+        ``(None, None, 0.0)`` in this slice (no deskew).
+        """
+        images = list(images)
+        state: List = [None] * len(images)
+        self.last_batch_state = state
+        self.last_deskewed_image = None
+        self.last_deskew_boxes = None
+        self.last_deskew_angle = 0.0
+        for i, detected in self.db_detector.iter_detect_text(images):
+            boxes = self._process_boxes_objects(detected, merge=False,
+                                                skip_sort=True)
+            state[i] = (None, None, 0.0)
+            yield i, self._split_column_merges(images[i], boxes)
+
+    def detect_lines_objects_batch(self, images) -> List[List[TextBox]]:
+        """``detect_lines_objects`` of many pages, in input order."""
+        images = list(images)
+        out: List = [None] * len(images)
+        for i, boxes in self.iter_lines_objects_batch(images):
+            out[i] = boxes
+        return out
+
+    def _split_column_merges(self, image, tbs: List[TextBox],
+                             min_gap: int = 14) -> List[TextBox]:
+        """Split boxes that bridge a column gutter: an ink-free column run
+        of at least ``min_gap`` px inside a box is a gutter when a band of
+        at least 10 px of it is also ink-free over the rows of the other
+        boxes (at least 24 such rows); the parts are tightened to their own
+        ink and padded again."""
+        if not self.split_columns or len(tbs) < 3:
+            return tbs
+        img = self._load_image(image)
+        if img is None:
+            return tbs
+        ih, iw = img.shape[:2]
+        lo, hi = np.percentile(img, (0.5, 99.5))
+        thr = (float(lo) + float(hi)) / 2.0
+        dark = img < thr
+        ink = dark if dark.mean() <= 0.5 else ~dark
+        row_of = np.zeros(ih, bool)
+        spans = []
+        for b in tbs:
+            y0, y1 = max(0, b.y), min(ih, b.y + b.height)
+            spans.append((y0, y1))
+            row_of[y0:y1] = True
+        out: List[TextBox] = []
+        for bi, b in enumerate(tbs):
+            x0, x1 = max(0, b.x), min(iw, b.x + b.width)
+            y0, y1 = spans[bi]
+            if x1 - x0 < 3 * min_gap or y1 <= y0:
+                out.append(b)
+                continue
+            prof = ink[y0:y1, x0:x1].sum(axis=0)
+            nz = np.nonzero(prof)[0]
+            if nz.size == 0:
+                out.append(b)
+                continue
+            own = np.zeros(ih, bool)
+            own[y0:y1] = True
+            support = row_of & ~own
+            if support.sum() < 24:
+                out.append(b)
+                continue
+            blocked_thr = max(2.0, 0.004 * support.sum())
+            cuts = []
+            run = 0
+            for c in range(nz[0], nz[-1] + 1):
+                if prof[c] == 0:
+                    run += 1
+                    continue
+                if run >= min_gap:
+                    g0, g1 = x0 + c - run, x0 + c
+                    blocked = ink[support, g0:g1].sum(axis=0) > blocked_thr
+                    clear, best = 0, None
+                    for cc in range(g0, g1):
+                        if not blocked[cc - g0]:
+                            clear += 1
+                            if best is None or clear > best[1] - best[0]:
+                                best = (cc - clear + 1, cc + 1)
+                        else:
+                            clear = 0
+                    if best is not None and best[1] - best[0] >= 10:
+                        cuts.append(best)
+                run = 0
+            if not cuts:
+                out.append(b)
+                continue
+            edges = [x0 + nz[0]] + [g for cut in cuts for g in cut] \
+                + [x0 + nz[-1] + 1]
+            for s0, s1 in zip(edges[::2], edges[1::2]):
+                ys, xs = np.nonzero(ink[y0:y1, s0:s1])
+                if ys.size < 10:
+                    continue
+                py0, py1 = y0 + ys.min(), y0 + ys.max() + 1
+                px0, px1 = s0 + xs.min(), s0 + xs.max() + 1
+                pad = max(2, int(round(0.1 * (py1 - py0))))
+                out.append(TextBox(
+                    max(0, px0 - pad), max(0, py0 - pad),
+                    min(iw, px1 + pad) - max(0, px0 - pad),
+                    min(ih, py1 + pad) - max(0, py0 - pad),
+                    confidence=b.confidence, level=b.level))
+        return out
+
+    def _process_boxes_objects(self, detected_boxes, merge=True,
+                               skip_sort=False) -> List[TextBox]:
+        boxes = []
+        padding = self.kwargs.get("padding", 0)
+        for item in detected_boxes:
+            if isinstance(item, tuple) and len(item) == 2:
+                box, confidence = item
+            else:
+                box, confidence = item, 1.0
+            shape = getattr(box, "shape", None)
+            if shape is not None and len(shape) == 2 and shape[1] == 2:
+                # Quad or polygon outline ([N, 2] points).
+                x1, y1 = box[:, 0].min(), box[:, 1].min()
+                x2, y2 = box[:, 0].max(), box[:, 1].max()
+            else:
+                x1, y1, x2, y2 = box
+            w, h = x2 - x1, y2 - y1
+            if padding:
+                x1 = max(0, x1 - padding)
+                y1 = max(0, y1 - padding)
+                w += 2 * padding
+                h += 2 * padding
+            boxes.append(TextBox(int(x1), int(y1), int(w), int(h),
+                                 confidence=float(confidence),
+                                 level=DetectionLevel.LINE))
+        if not skip_sort:
+            boxes = self._sort_reading_order(boxes)
+        if merge:
+            boxes = self._merge_overlapping_boxes(boxes)
+        return boxes
+
+    def _sort_reading_order(self, boxes: List[TextBox]) -> List[TextBox]:
+        """Rows by median height (centres within 0.7 of it), then x."""
+        if not boxes:
+            return []
+        get_cy = lambda b: b.y + b.height / 2  # noqa: E731
+        get_cx = lambda b: b.x + b.width / 2  # noqa: E731
+        boxes = sorted(boxes, key=get_cy)
+        median_h = float(np.median([b.height for b in boxes]))
+        y_tol = median_h * 0.7
+        lines, current = [], [boxes[0]]
+        for b in boxes[1:]:
+            avg_cy = float(np.mean([get_cy(lb) for lb in current]))
+            if abs(get_cy(b) - avg_cy) < y_tol:
+                current.append(b)
+            else:
+                lines.append(current)
+                current = [b]
+        lines.append(current)
+        out = []
+        for line in lines:
+            out.extend(sorted(line, key=get_cx))
+        return out
+
+    def _merge_overlapping_boxes(self, boxes: List[TextBox],
+                                 iou_threshold: float = 0.3) -> List[TextBox]:
+        """Merge boxes whose vertical overlap exceeds ``iou_threshold`` of
+        the smaller height."""
+        if not boxes:
+            return []
+        boxes = sorted(boxes, key=lambda b: b.y)
+        merged, current = [], boxes[0]
+        for nxt in boxes[1:]:
+            y1c, y2c = current.y, current.y + current.height
+            y1n, y2n = nxt.y, nxt.y + nxt.height
+            overlap = max(0, min(y2c, y2n) - max(y1c, y1n))
+            min_h = min(current.height, nxt.height)
+            if min_h > 0 and overlap / min_h > iou_threshold:
+                x1 = min(current.x, nxt.x)
+                y1 = min(current.y, nxt.y)
+                x2 = max(current.x + current.width, nxt.x + nxt.width)
+                y2 = max(current.y + current.height, nxt.y + nxt.height)
+                conf = (current.confidence + nxt.confidence) / 2
+                current = TextBox(x1, y1, x2 - x1, y2 - y1, confidence=conf,
+                                  level=current.level)
+            else:
+                merged.append(current)
+                current = nxt
+        merged.append(current)
+        return merged
+
+    # ------------------------------------------------------- other levels
+    def detect_words(self, image):
+        raise _not_ported("detect_words", "ROADMAP queue 1: the classic-CV "
+                          "detector")
+
+    def detect_blocks(self, image):
+        raise _not_ported("detect_blocks", "ROADMAP queue 1: the classic-CV "
+                          "detector")
+
+    def detect_characters(self, image):
+        raise _not_ported("detect_characters", "ROADMAP queue 1: the "
+                          "classic-CV detector")

@@ -83,9 +83,11 @@ def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 class Encoded(NamedTuple):
     """One encoded chunk on the device: rows past ``n`` pad the batch to its
-    bucket. ``memp`` is None where only the CTC head is read."""
+    bucket. ``memp`` is None where only the CTC head is read; ``ctc`` is
+    None for a checkpoint without a CTC head (``cfg.USE_CTC`` false), whose
+    ``ids``, ``conf`` and ``est`` are zeros."""
     memp: Optional[torch.Tensor]
-    ctc: torch.Tensor
+    ctc: Optional[torch.Tensor]
     ids: torch.Tensor
     conf: torch.Tensor
     est: torch.Tensor
@@ -139,8 +141,14 @@ class RecognizerEngine:
     def _encode(self, images: torch.Tensor, n: int, project: bool = True
                 ) -> Encoded:
         mem = self.model.encode(images, self.dtype)
-        ctc = self.model.ctc_logits(mem)
-        ids, conf, est = greedy_ctc_stats(ctc, self.tok.ctc_offset)
+        if self.cfg.USE_CTC:
+            ctc = self.model.ctc_logits(mem)
+            ids, conf, est = greedy_ctc_stats(ctc, self.tok.ctc_offset)
+        else:
+            ctc, (b, t) = None, mem.shape[:2]
+            ids = torch.zeros((b, t), dtype=torch.int32, device=mem.device)
+            conf = torch.zeros(b, dtype=torch.float32, device=mem.device)
+            est = torch.zeros(b, dtype=torch.int32, device=mem.device)
         memp = self.model.mem_project(mem) if project else None
         return Encoded(memp, ctc, ids, conf, est, n)
 
@@ -198,12 +206,12 @@ class RecognizerEngine:
     def _gather_rows(self, rows: Sequence[int], *tensors):
         """The given rows of each tensor, padded to a batch bucket with
         copies of the first of them: device tensors are gathered on the
-        device, host arrays on the host and uploaded."""
+        device, host arrays on the host and uploaded; None stays None."""
         sel = np.asarray(rows, np.int64)
         pad = pick_batch_bucket(self.cfg, len(sel)) - len(sel)
         sel = np.concatenate([sel, np.full(pad, sel[0], np.int64)])
         sel_dev = torch.from_numpy(sel).to(self.device)
-        return [torch.from_numpy(t[sel]).to(self.device)
+        return [None if t is None else torch.from_numpy(t[sel]).to(self.device)
                 if isinstance(t, np.ndarray) else t.index_select(0, sel_dev)
                 for t in tensors]
 
@@ -223,9 +231,10 @@ class RecognizerEngine:
         With cfg.SPEC_DECODE the CTC transcript drafts the output and
         teacher-forced passes verify it (``ops.decode.spec_decode``: a few
         passes per batch and not one step per character, the same output);
-        otherwise the KV-cached step loop runs (``beam_search`` with one
-        beam, or ``greedy_decode`` for ``raw_select``)."""
-        if self.cfg.SPEC_DECODE:
+        otherwise, and without a CTC head to draft from, the KV-cached step
+        loop runs (``beam_search`` with one beam, or ``greedy_decode`` for
+        ``raw_select``)."""
+        if self.cfg.SPEC_DECODE and ctc is not None:
             rescore = not raw_select and self.cfg.ACCURATE_CTC_RESCORE
             return D.spec_decode(
                 self.model, memp, ids, tl, None if raw_select else conf,
@@ -495,6 +504,10 @@ class RecognizerEngine:
         fetch (the certificate) before the step loops are launched.
         """
         n = len(est_np)
+        if ctc is None:
+            # No CTC head: nothing to draft from, the step loop reads all.
+            return self.beam_device_bucketed(memp, ctc, est_np, conf,
+                                             chunk=chunk)
         tl_np = np.where(est_np > 0, est_np, 0).astype(np.int32)
         l_cap = self._step_cap(est_np, n, memp.shape[1])
         with torch.inference_mode():
@@ -569,7 +582,11 @@ class RecognizerEngine:
         n = e.n
         if method == "ctc":
             with torch.inference_mode():
-                max_probs = torch.softmax(e.ctc, dim=-1).amax(dim=-1)
+                # No CTC head: zero ids and probabilities, so each line
+                # streams one finished record of "" (confidence 0).
+                max_probs = (torch.zeros(e.ids.shape, device=e.ids.device)
+                             if e.ctc is None else
+                             torch.softmax(e.ctc, dim=-1).amax(dim=-1))
             ids_np, probs_np = _fetch([e.ids, max_probs])
             return [list(self._stream_ctc_row(ids_np[i], probs_np[i]))
                     for i in range(n)]

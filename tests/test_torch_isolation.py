@@ -62,3 +62,18 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RecognizerEngine.from_checkpoint(ckpt)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_page_entry_points_refuse_cpu_fallback(monkeypatch):
+    """OCR, DBDetector and TextDetector with no device mean the card."""
+    import kiri_tpu_torch
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.detect.db import DBDetector
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    det = str(REPO / "models" / "detector.safetensors")
+    for make in (lambda: kiri_tpu_torch.OCR(str(REPO / "models"
+                                                / "model.safetensors")),
+                 lambda: DBDetector(det), lambda: TextDetector("db", det)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
