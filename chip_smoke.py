@@ -51,7 +51,26 @@
    ``extract_text``, ms per stage, the detection split, the DB forward per
    canvas bucket and the device's busy share of a page, each with the
    card's name and power limit;
-6. prints one throughput line per method, one line per streamed method with
+6. the rotated-pages phase, with ``models/craft.safetensors`` too, over
+   the committed pages and their three rotated pages (each run with the
+   counters at 0): CRAFT's float16 region and affinity maps of two stored
+   pages within 2 float16 steps of kiri_tpu's, its quads on all twelve
+   pages, ``TextDetector("craft")``'s boxes and one page's ``poly=True``
+   outlines equal to the stored ones; DB and CRAFT with ``deskew=True``:
+   each rotated page's applied angle, boxes and upright boxes equal to the
+   stored ones; float32 "fast" and "accurate" texts equal kiri_tpu's
+   stored texts on identical boxes for DB + deskew with
+   ``deskew_single_resample`` on and off, "fast" with
+   ``preprocess="device"`` (the preprocess kernel on single-resample crops)
+   and with ``enhance=True`` on the noisy rotated page, CRAFT on all pages
+   and CRAFT + deskew; the pooled ``process_documents`` equal to the
+   per-page results; bf16 line CER per script within the gates (or
+   kiri_tpu's own + 0.005); the rotated pages' line recall and CER of DB
+   with deskew off and on. Then it prints the CRAFT forward per canvas (batch 1
+   and 8, device ms, peak memory, cuDNN FFT share), the host ms of the
+   deskew stages, pages/s of ``process_documents`` for CRAFT and for DB +
+   deskew, and the device's busy share of a page;
+7. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -98,6 +117,7 @@ PAGE_MAP_TOL = 8          # u16 counts of the DB map (1.2e-4)
 PAGE_BOX_TOL = 1          # px, a line box against kiri_tpu's
 PAGES_TIMED = 32          # pages of a timed process_documents call
 PAGE_CER_SLACK = 0.005    # bf16 page line CER above kiri_tpu's own
+CRAFT_MAP_STEPS = 2       # float16 steps of a CRAFT map value
 STREAM_WINDOWS_TIMED = (1, 4, 8, 16, 32)
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
@@ -997,9 +1017,284 @@ def pages_phase(torch, np, drive, card):
               f"{card})", flush=True)
 
 
-def host_and_device_ms(torch, fn, reps: int = 5):
+def _f16_steps(np, a, b):
+    """|a - b| in float16 steps (both float16 values)."""
+    ia = np.asarray(a, np.float16).view(np.int16).astype(np.int32)
+    ib = np.asarray(b, np.float16).view(np.int16).astype(np.int32)
+    return np.abs(ia - ib)
+
+
+def rotated_pages_phase(torch, np, drive, card):
+    """Rotated pages and the CRAFT detector on the card at full width with
+    the committed checkpoints, against kiri_tpu's stored answers: CRAFT's
+    maps, quads, boxes and polygons; DB and CRAFT with deskew (angles and
+    boxes); float32 texts with the single resample on and off, device
+    preprocessing, enhancement and pooling; bf16 CER; the rotated pages'
+    recall with deskew off and on. Then the CRAFT forward per canvas, the
+    deskew stages' host ms, pages/s and the device's busy share."""
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.detect.craft import resize_aspect_ratio
+    from kiri_tpu_torch.detect.deskew import (estimate_skew,
+                                              extract_crop_single_resample,
+                                              rotate_image)
+    from kiri_tpu_torch.evalpage import is_khmer, score_pages
+    from kiri_tpu_torch.ops.preprocess import invert_if_dark
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.smoke import load_smoke_pages
+
+    fx = load_smoke_pages()
+    pages = fx["pages"] + fx["rot_pages"]
+    imgs = [p["image"] for p in pages]
+    rot = list(range(len(fx["pages"]), len(pages)))
+    stored = fx["results_rot"]
+    ckpt = str(REPO / "models" / "model.safetensors")
+    paths = {"db": str(REPO / "models" / "detector.safetensors"),
+             "craft": str(REPO / "models" / "craft.safetensors")}
+
+    def ocr(det="db", **kw):
+        return OCR(ckpt, det_model_path=paths[det], det_method=det,
+                   device="cuda", **kw)
+
+    def on(which, o):
+        return lambda: [o.process_document(im) if i in which else []
+                        for i, im in enumerate(imgs)]
+
+    # CRAFT against the stored maps, quads, boxes and polygons.
+    craft_td = TextDetector("craft", paths["craft"], device="cuda")
+    craft = craft_td.craft_detector
+    worst, n_diff, n_all = 0, 0, 0
+    for i, want in fx["craft_maps"].items():
+        region, affinity, _ = craft.predict_maps(imgs[i])
+        for got, w in zip((region, affinity), want):
+            steps = _f16_steps(np, got, w)
+            worst = max(worst, int(steps.max()))
+            n_diff += int((steps > 0).sum())
+            n_all += steps.size
+    check(worst <= CRAFT_MAP_STEPS,
+          f"rotated: CRAFT float16 region and affinity maps of pages "
+          f"{sorted(fx['craft_maps'])} within {worst} float16 steps of "
+          f"kiri_tpu's (tol {CRAFT_MAP_STEPS}); {n_diff} of {n_all} values "
+          f"differ")
+    quads = craft.detect_text_batch(imgs)
+    same_q = sum(len(q) == len(w["quads"]) and all(
+        np.array_equal(a, b) for (a, _), b in zip(q, w["quads"]))
+        for q, w in zip(quads, fx["craft"]))
+    boxes = craft_td.detect_lines_objects_batch(imgs)
+    same_b = sum([b.bbox for b in bs] == w["boxes"]
+                 for bs, w in zip(boxes, fx["craft"]))
+    single = [craft_td.detect_lines_objects(im) for im in imgs]
+    poly_page, poly_want = fx["craft_poly"]
+    poly = craft.detect_text(imgs[poly_page], poly=True)
+    poly_ok = len(poly) == len(poly_want) and all(
+        np.array_equal(a, b) for (a, _), b in zip(poly, poly_want))
+    check(same_q == same_b == len(imgs) and single == boxes and poly_ok,
+          f"rotated: CRAFT quads equal kiri_tpu's on {same_q}/{len(imgs)} "
+          f"pages ({sum(map(len, quads))} quads), TextDetector boxes on "
+          f"{same_b}/{len(imgs)} (batched = single-page: {single == boxes}), "
+          f"poly=True outlines of page {poly_page} equal: {poly_ok}")
+
+    # Deskew: the applied angle, the boxes and their upright twins.
+    for det in ("db", "craft"):
+        td = TextDetector(det, paths[det], device="cuda", deskew=True)
+        ok, n = True, 0
+        for p in fx["rot_pages"]:
+            want = p["deskew"][det]
+            got = [b.bbox for b in td.detect_lines_objects(p["image"])]
+            ok &= (td.last_deskew_angle == want["angle"]
+                   and got == want["boxes"]
+                   and [b.bbox for b in td.last_deskew_boxes]
+                   == want["twins"])
+            n += len(got)
+        check(ok, f"rotated: {det} + deskew on the {len(rot)} rotated pages: "
+              f"angles {[p['deskew'][det]['angle'] for p in fx['rot_pages']]}"
+              f" and {n} boxes (and their upright twins) equal kiri_tpu's")
+    est = [estimate_skew(im) for im in imgs]
+    check(est == [float(a) for a in fx["skew_angles"]],
+          f"rotated: estimate_skew of the {len(imgs)} pages equals "
+          f"kiri_tpu's floats ({sum(abs(a) >= 1.0 for a in est)} pages at "
+          f"1 degree or more)")
+
+    # float32 against kiri_tpu's stored texts on identical boxes.
+    def hold_f32(run, res):
+        n, same, worst, bad = _stored_agree(res, stored[run])
+        check(n > 0 and not bad and worst <= TOL_CONF_F32,
+              f"rotated f32 {run}: {same}/{n} texts on identical boxes "
+              f"equal kiri_tpu's stored texts ({sum(map(len, res))} lines), "
+              f"max |conf diff| {worst:.2e} (tol {TOL_CONF_F32:g})"
+              + (f"; first differences {bad[:3]}" if bad else ""))
+        return res
+
+    f32 = "stem_fused_f32"
+    per_page = {}
+    for m in ("fast", "accurate"):
+        o = ocr(decode_method=m, use_fp16=False, deskew=True)
+        per_page[f"db_{m}"] = hold_f32(f"db_deskew_{m}_f32", drive(
+            f"rotated f32 db deskew {m}", on(rot, o), (f32,)))
+        o.deskew_single_resample = False
+        hold_f32(f"db_deskew_{m}_f32_twostep", drive(
+            f"rotated f32 db deskew {m} two-step", on(rot, o), (f32,)))
+    dev = ocr(decode_method="fast", use_fp16=False, deskew=True,
+              preprocess="device")
+    hold_f32("db_deskew_fast_f32_device", drive(
+        "rotated f32 db deskew fast preprocess=device", on(rot, dev),
+        (f32, "preprocess_lines")))
+    noisy = next(i for i, p in zip(rot, fx["rot_pages"])
+                 if p["spec"][3].endswith("noisy"))
+    enh = ocr(decode_method="fast", use_fp16=False, deskew=True,
+              enhance=True)
+    hold_f32("db_deskew_fast_f32_enhance", drive(
+        "rotated f32 db deskew fast enhance (despike, linear warps)",
+        on((noisy,), enh), (f32,)))
+    every = range(len(imgs))
+    for m in ("fast", "accurate"):
+        o = ocr("craft", decode_method=m, use_fp16=False)
+        per_page[f"craft_{m}"] = hold_f32(f"craft_{m}_f32", drive(
+            f"rotated f32 craft {m}", on(every, o), (f32,)))
+    o = ocr("craft", decode_method="fast", use_fp16=False, deskew=True)
+    hold_f32("craft_deskew_fast_f32", drive(
+        "rotated f32 craft deskew fast", on(rot, o), (f32,)))
+    o.deskew_single_resample = False
+    hold_f32("craft_deskew_fast_f32_twostep", drive(
+        "rotated f32 craft deskew fast two-step", on(rot, o), (f32,)))
+    # Pooled against per page.
+    for det, key, kw in (("db", "db_fast", dict(deskew=True)),
+                         ("craft", "craft_fast", {})):
+        o = ocr(det, decode_method="fast", use_fp16=False, **kw)
+        which = rot if det == "db" else every
+        pooled = drive(f"rotated f32 {det} fast process_documents",
+                       lambda: o.process_documents([imgs[i] for i in which]),
+                       (f32,))
+        want = [per_page[key][i] for i in which]
+        n, same, worst, bad = _stored_agree(pooled, want)
+        check(n == sum(map(len, want)) == sum(map(len, pooled)) and not bad
+              and worst <= TOL_CONF_F32,
+              f"rotated f32 {det} fast: process_documents over {len(which)} "
+              f"pages gives the per-page boxes and texts on {same}/{n} "
+              f"lines, max |conf diff| {worst:.2e}")
+
+    # bf16 against the ground truth, and the recall with deskew off and on.
+    gates = {"fast": CER_MAX, "accurate": CER_MAX_DECODER}
+    scripts = {"Khmer": is_khmer, "English": lambda t: not is_khmer(t)}
+    bf16_res = {}
+    for det, m, which, kw in (
+            ("db", "fast", rot, dict(deskew=True)),
+            ("db", "accurate", rot, dict(deskew=True)),
+            ("craft", "fast", every, {}),
+            ("craft", "accurate", every, {})):
+        run = f"{det}{'_deskew' if kw else ''}_{m}_bf16"
+        o = ocr(det, decode_method=m, use_fp16=True, **kw)
+        res = drive(f"rotated bf16 {run}", on(which, o), ("stem_fused",))
+        bf16_res[run] = res
+        sel = [pages[i] for i in which]
+        got = [res[i] for i in which]
+        ref_res = [stored[run][i] for i in which]
+        ours = {k: score_pages(sel, got, f) for k, f in scripts.items()}
+        ref = {k: score_pages(sel, ref_res, f) for k, f in scripts.items()}
+        limit = {k: max(gates[m], ref[k]["matched_cer"] + PAGE_CER_SLACK)
+                 for k in scripts}
+        alls, refs = score_pages(sel, got), score_pages(sel, ref_res)
+        check(all(ours[k]["matched_cer"] <= limit[k] for k in scripts),
+              f"rotated bf16 {run} over {len(which)} pages: line CER "
+              + ", ".join(f"{k} {ours[k]['matched_cer']:.4f} (max "
+                          f"{limit[k]:.4f}; kiri_tpu "
+                          f"{ref[k]['matched_cer']:.4f})" for k in scripts)
+              + f"; line recall {alls['line_recall']:.4f} (kiri_tpu "
+              f"{refs['line_recall']:.4f}) of {alls['gt_lines']} lines, "
+              f"end2end_cer {alls['end2end_cer']:.4f}, doc_cer "
+              f"{alls['doc_cer']:.4f}")
+    # The same pages without deskew: for the recall and CER it costs (the
+    # skewed crops read as badly in kiri_tpu, so no CER gate applies).
+    o = ocr(decode_method="fast", use_fp16=True)
+    bf16_res["db_fast_bf16"] = drive("rotated bf16 db_fast_bf16 (no deskew)",
+                                     on(rot, o), ("stem_fused",))
+    sel = [pages[i] for i in rot]
+    recall = {k: score_pages(sel, [bf16_res[r][i] for i in rot])
+              for k, r in (("off", "db_fast_bf16"),
+                           ("on", "db_deskew_fast_bf16"))}
+    ref_off = score_pages(sel, [stored["db_fast_bf16"][i] for i in rot])
+    check(recall["on"]["line_recall"] >= recall["off"]["line_recall"]
+          and recall["on"]["end2end_cer"] < recall["off"]["end2end_cer"],
+          f"rotated pages, DB fast bf16 ({card}): line recall deskew off "
+          f"{recall['off']['line_recall']:.4f} -> on "
+          f"{recall['on']['line_recall']:.4f} over "
+          f"{recall['on']['gt_lines']} lines; end2end_cer "
+          f"{recall['off']['end2end_cer']:.4f} -> "
+          f"{recall['on']['end2end_cer']:.4f} (kiri_tpu without deskew: "
+          f"recall {ref_off['line_recall']:.4f}, end2end_cer "
+          f"{ref_off['end2end_cer']:.4f})")
+
+    # The CRAFT forward per canvas: host and device ms, peak memory, FFT.
+    canvases = {}
+    for im in imgs:
+        c, _ = resize_aspect_ratio(invert_if_dark(im), craft.canvas_size,
+                                   craft.mag_ratio)
+        canvases.setdefault(c.shape, c)
+    for shape, c in sorted(canvases.items()):
+        parts = []
+        for nb in (1, 8):
+            batch = np.stack([c] * nb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            h, dv, fft = host_and_device_ms(
+                torch, lambda: craft.forward_maps(batch).cpu(), reps=3,
+                match="fft")
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            parts.append(f"batch {nb} {h:.3f} / {dv:.3f} ms (FFT kernels "
+                         f"{fft:.3f} ms), peak {peak:.0f} MiB")
+        print(f"CRAFT forward_maps {shape[0]}x{shape[1]} (float32, TF32 off; "
+              f"host ms a call with the upload and fetch / device busy ms "
+              f"under torch.profiler; {card}): " + ", ".join(parts),
+              flush=True)
+    # Host ms of the deskew stages, on the rotated pages.
+    t_est = t_rot = t_crop = 0.0
+    n_crops = 0
+    for p in fx["rot_pages"]:
+        im = p["image"]
+        t0 = time.perf_counter()
+        angle = estimate_skew(im)
+        t1 = time.perf_counter()
+        rotate_image(im, -angle)
+        t2 = time.perf_counter()
+        for box in p["deskew"]["db"]["twins"]:
+            extract_crop_single_resample(im, angle, box, 48,
+                                         fill=int(np.median(im)))
+            n_crops += 1
+        t3 = time.perf_counter()
+        t_est, t_rot, t_crop = (t_est + t1 - t0, t_rot + t2 - t1,
+                                t_crop + t3 - t2)
+    k = len(fx["rot_pages"])
+    print(f"deskew host ms a page (mean over {k} rotated 640x640 pages; "
+          f"{card}): estimate_skew {t_est * 1e3 / k:.2f}, rotate_image "
+          f"{t_rot * 1e3 / k:.2f}, single-resample crops "
+          f"{t_crop * 1e3 / k:.2f} ({n_crops / k:.1f} crops a page)",
+          flush=True)
+    # pages/s and the device's busy share, bf16 "fast".
+    for name, det, kw, src in (("CRAFT", "craft", {}, imgs),
+                               ("DB + deskew", "db", dict(deskew=True),
+                                [imgs[i] for i in rot])):
+        o = ocr(det, decode_method="fast", use_fp16=True, **kw)
+        many = [src[i % len(src)] for i in range(PAGES_TIMED)]
+        o.process_documents(src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.process_documents(many)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        h, dv = host_and_device_ms(torch, lambda: o.process_documents(src),
+                                   reps=2)
+        print(f"pages {name} fast (bf16; {card}): process_documents of "
+              f"{PAGES_TIMED} pages {PAGES_TIMED / dt:.2f} pages/s "
+              f"({dt * 1e3 / PAGES_TIMED:.2f} ms a page); over {len(src)} "
+              f"pages {h:.2f} ms host, device busy {dv:.2f} ms "
+              f"({100 * dv / h:.1f}%)", flush=True)
+
+
+def host_and_device_ms(torch, fn, reps: int = 5, match: str = ""):
     """(host ms a call, synchronized; the device's busy ms a call: the sum
-    of device-side events under torch.profiler), after one warm-up call."""
+    of device-side events under torch.profiler), after one warm-up call.
+    With ``match``, also the device ms a call of the events whose name
+    holds it (case-insensitive)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1014,9 +1309,14 @@ def host_and_device_ms(torch, fn, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return host, busy / 1e3 / reps
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+    if not match:
+        return host, busy
+    hit = sum(e.time_range.elapsed_us() for e in dev
+              if match.lower() in e.name.lower()) / 1e3 / reps
+    return host, busy, hit
 
 
 def card_name_power() -> str:
@@ -1079,6 +1379,8 @@ def main() -> int:
                preprocess_phase(torch, np, crops)]
     counts, by_run = main_path_phase(torch, np, model, cfg, tok, d, crops)
     pages_phase(torch, np, functools.partial(drive_run, counts, by_run), card)
+    rotated_pages_phase(torch, np, functools.partial(drive_run, counts,
+                                                     by_run), card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

@@ -92,3 +92,28 @@ def state_dict_from_jax(variables: Dict[str, Any], max_dec_len: int = 512,
         out["dec_pos_enc.pe"] = sinusoid_table(max_dec_len + 10, d)[None]
     return {k: torch.from_numpy(np.array(v, order="C"))
             for k, v in out.items()}
+
+
+def flatten_params(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A detector's nested ``{"params": {layer: {leaf: array}}}`` tree ->
+    the flat ``params.<layer>.<leaf>`` arrays its checkpoint stores."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}.{k}", v)
+        else:
+            flat[prefix] = _f32(node)
+
+    walk("params", variables["params"])
+    return flat
+
+
+def craft_state_dict_from_jax(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """``kiri_tpu`` CRAFT variables (``init_craft_net`` or a loaded
+    checkpoint) -> ``CRAFTNet``'s state dict (HWIO convs -> OIHW)."""
+    from .detect.craft.net import state_dict_from_flat
+
+    return state_dict_from_flat(flatten_params(variables))

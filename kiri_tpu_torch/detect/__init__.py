@@ -1,11 +1,19 @@
-"""Text-detection facade, DB route (the port of ``kiri_tpu/detect/
-__init__.py``).
+"""Text-detection facade, DB and CRAFT routes (the port of
+``kiri_tpu/detect/__init__.py``).
 
-``TextDetector(method="db")`` turns the DB detector's quads into ``TextBox``
-rows in reading order and splits boxes that bridge a column gutter. Unlike
-the JAX package it never falls back to another detector: a detector that
-fails to load or to run raises. CRAFT, the classic-CV detector, deskew and
-the word, block and character levels are not ported yet (ROADMAP queue 1).
+``TextDetector(method="db" | "craft")`` turns the detector's quads into
+``TextBox`` rows in reading order (CRAFT's merged where they overlap
+vertically) and splits boxes that bridge a column gutter. With
+``deskew=True`` a page whose estimated skew reaches ``deskew_min_angle``
+is straightened first (``detect/deskew.py``), detected upright, and its
+boxes are mapped back to the input frame; the upright page and its boxes
+stay on the detector for the croppers (``last_deskewed_image``,
+``last_deskew_boxes``, ``last_deskew_angle``; ``last_batch_state`` per page
+of a batch).
+
+Unlike the JAX package it never falls back to another detector: a detector
+that fails to load or to run raises. The classic-CV detector and the word,
+block and character levels are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -17,13 +25,16 @@ import numpy as np
 from ..ops.preprocess import to_gray
 from ..utils.imageio import imread_bgr
 from .base import DetectionLevel, TextBox
+from .craft import CRAFTDetector
 from .db import DBDetector
+from .deskew import boxes_to_original, estimate_skew, rotate_image
 
 _DB_KEYS = ("det_db_thresh", "det_db_box_thresh", "det_db_unclip_ratio",
             "max_side_len", "min_size", "binary_threshold",
             "polygon_threshold", "unclip_ratio", "max_candidates",
             "padding_pct", "padding_px", "padding_y_pct", "padding_y_px",
             "line_tolerance_ratio", "debug", "det_map_downsample")
+_MODEL_FILES = {"db": "detector.safetensors", "craft": "craft.safetensors"}
 
 
 def _not_ported(what: str, item: str):
@@ -31,42 +42,51 @@ def _not_ported(what: str, item: str):
 
 
 class TextDetector:
-    """Detector facade over the DB backend. ``device`` (None means the card)
-    goes to the DB net."""
+    """Detector facade over the DB or the CRAFT backend. ``device`` (None
+    means the card) goes to the net."""
 
     def __init__(self, method: str = "db", model_path: Optional[str] = None,
                  device=None, **kwargs):
         self.conf_threshold = kwargs.pop("conf_threshold", 0.25)
-        if kwargs.pop("deskew", False):
-            raise _not_ported("deskew", "ROADMAP queue 1: deskew")
-        self.deskew = False
-        kwargs.pop("deskew_min_angle", None)
+        #: Straighten skewed pages before detection and map the boxes back.
+        self.deskew = kwargs.pop("deskew", False)
+        #: Smaller estimated angles are left alone.
+        self.deskew_min_angle = kwargs.pop("deskew_min_angle", 1.0)
+        #: The last page's estimate (also when it was not applied).
         self.last_skew_angle = 0.0
         #: Split detected boxes that bridge an aligned column gutter
         #: (``_split_column_merges``); off keeps the backend's boxes.
         self.split_columns = kwargs.pop("split_columns", True)
-        # The deskew state the pipeline reads; never set in this slice.
+        # Per-page deskew state: the upright page, its boxes (one for each
+        # returned box) and the applied angle, or None, None, 0.0.
         self.last_deskewed_image = None
         self.last_deskew_boxes = None
         self.last_deskew_angle = 0.0
-        if method != "db":
-            raise _not_ported(f"method={method!r}", "ROADMAP queue 1: CRAFT "
-                              "and the classic-CV detector")
+        if method not in _MODEL_FILES:
+            raise _not_ported(f"method={method!r}", "ROADMAP queue 1: the "
+                              "classic-CV detector")
         self.method = method
         self.kwargs = kwargs
         if model_path is None:
             model_path = self._find_default_model()
         if not (model_path and Path(model_path).exists()):
-            raise FileNotFoundError(f"DB model not found: {model_path}")
+            raise FileNotFoundError(
+                f"{method.upper()} model not found: {model_path}")
         self.model_path = str(model_path)
-        self.db_detector = DBDetector(
-            self.model_path, device=device,
-            **{k: v for k, v in kwargs.items() if k in _DB_KEYS})
+        self.db_detector = self.craft_detector = None
+        if method == "db":
+            self.db_detector = DBDetector(
+                self.model_path, device=device,
+                **{k: v for k, v in kwargs.items() if k in _DB_KEYS})
+        else:
+            self.craft_detector = CRAFTDetector(self.model_path,
+                                                device=device)
 
     def _find_default_model(self) -> Optional[str]:
-        """``detector.safetensors`` in ./models, ., or the checkout's
-        models/ (no download)."""
-        fname = "detector.safetensors"
+        """The method's checkpoint (``detector.safetensors`` or
+        ``craft.safetensors``) in ./models, ., or the checkout's models/
+        (no download)."""
+        fname = _MODEL_FILES[self.method]
         repo_root = Path(__file__).resolve().parents[2]
         for p in (Path("models") / fname, Path(fname),
                   repo_root / "models" / fname):
@@ -91,10 +111,52 @@ class TextDetector:
         return [b.bbox for b in self.detect_lines_objects(image)]
 
     def detect_lines_objects(self, image) -> List[TextBox]:
-        detected = self.db_detector.detect_text(image)
-        # DB results arrive sorted in reading order.
-        boxes = self._process_boxes_objects(detected, merge=False,
-                                            skip_sort=True)
+        # A previous page's deskew state must never reach this page's crops.
+        self.last_deskewed_image = None
+        self.last_deskew_boxes = None
+        self.last_deskew_angle = 0.0
+        if self.deskew:
+            img = self._load_image(image)
+            if img is not None:
+                angle = estimate_skew(img)
+                self.last_skew_angle = angle
+                if abs(angle) >= self.deskew_min_angle:
+                    desk = rotate_image(img, -angle)
+                    boxes, mapped = self._to_input_frame(
+                        self._detect_lines_upright(desk), angle, img.shape)
+                    self.last_deskewed_image = desk
+                    self.last_deskew_boxes = boxes
+                    self.last_deskew_angle = angle
+                    return mapped
+        return self._detect_lines_upright(image)
+
+    @staticmethod
+    def _to_input_frame(boxes: List[TextBox], angle: float, shape
+                        ) -> Tuple[List[TextBox], List[TextBox]]:
+        """(the upright boxes kept, their input-frame twins): boxes whose
+        mapped hull is empty are dropped from both."""
+        mapped = boxes_to_original(
+            [(b.x, b.y, b.width, b.height) for b in boxes], angle, shape[:2])
+        pairs = [(b, m) for b, m in zip(boxes, mapped)
+                 if m[2] > 0 and m[3] > 0]
+        return ([b for b, _ in pairs],
+                [TextBox(x, y, w, h, confidence=b.confidence, level=b.level)
+                 for b, (x, y, w, h) in pairs])
+
+    def _backend(self):
+        """(the backend's batched iterator, ``_process_boxes_objects``
+        arguments)."""
+        if self.method == "db":
+            return (self.db_detector.iter_detect_text,
+                    dict(merge=False, skip_sort=True))
+        return self.craft_detector.iter_detect_text, dict(merge=True)
+
+    def _detect_lines_upright(self, image) -> List[TextBox]:
+        if self.method == "db":
+            detected = self.db_detector.detect_text(image)
+        else:
+            detected = self.craft_detector.detect_text(image)
+        boxes = self._process_boxes_objects(detected, **self._backend()[1])
         return self._split_column_merges(image, boxes)
 
     def iter_lines_objects_batch(self, images):
@@ -103,8 +165,8 @@ class TextDetector:
         those of ``detect_lines_objects``.
 
         ``self.last_batch_state[i]`` is filled when page ``i`` is yielded
-        with ``(deskewed image, deskew boxes, applied angle)``, which is
-        ``(None, None, 0.0)`` in this slice (no deskew).
+        with ``(deskewed image, deskew boxes, applied angle)``, ``(None,
+        None, 0.0)`` for a page that was not rotated.
         """
         images = list(images)
         state: List = [None] * len(images)
@@ -112,11 +174,33 @@ class TextDetector:
         self.last_deskewed_image = None
         self.last_deskew_boxes = None
         self.last_deskew_angle = 0.0
-        for i, detected in self.db_detector.iter_detect_text(images):
-            boxes = self._process_boxes_objects(detected, merge=False,
-                                                skip_sort=True)
-            state[i] = (None, None, 0.0)
-            yield i, self._split_column_merges(images[i], boxes)
+        backend_iter, post_kwargs = self._backend()
+        # (upright page or the input, applied angle, estimate or None,
+        #  input shape)
+        preps = []
+        for image in images:
+            img, est = None, None
+            if self.deskew:
+                img = self._load_image(image)
+                if img is not None:
+                    est = estimate_skew(img)
+            if est is not None and abs(est) >= self.deskew_min_angle:
+                preps.append((rotate_image(img, -est), est, est, img.shape))
+            else:
+                preps.append((img if img is not None else image, 0.0, est,
+                              None))
+        for i, detected in backend_iter([p[0] for p in preps]):
+            upright, angle, est, shape = preps[i]
+            boxes = self._process_boxes_objects(detected, **post_kwargs)
+            boxes = self._split_column_merges(upright, boxes)
+            if angle:
+                kept, boxes = self._to_input_frame(boxes, angle, shape)
+                state[i] = (upright, kept, angle)
+            else:
+                state[i] = (None, None, 0.0)
+            if est is not None:
+                self.last_skew_angle = est
+            yield i, boxes
 
     def detect_lines_objects_batch(self, images) -> List[List[TextBox]]:
         """``detect_lines_objects`` of many pages, in input order."""

@@ -14,7 +14,14 @@ follow OpenCV's own code (``imgproc/src/resize.cpp``, ``color_rgb``):
   in integers, the column pass in float32 (no fused multiply-add) for the
   columns that fill whole vectors of 8 and in integers for the rest;
 - ``resize_u8(..., "area")``: ``INTER_AREA`` for downscales, integer block
-  means for exact integer factors and float32 weighted sums otherwise.
+  means for exact integer factors and float32 weighted sums otherwise;
+- ``warp_affine``: ``warpAffine(..., WARP_INVERSE_MAP, BORDER_CONSTANT)`` of
+  OpenCV 5.0 for ``INTER_LINEAR`` and ``INTER_CUBIC``, which interpolate in
+  float32 at the exact source position (not in a fixed-point remap): see
+  the function for the operation order;
+- ``rotate_bilinear``: Pillow's ``Image.rotate(angle, BILINEAR,
+  expand=False, fillcolor=fill)`` of an "L" image (``Geometry.c``: float64
+  positions at pixel centres, truncation of the filtered value).
 
 A cv2 built with Intel IPP (the pip wheels) hands ``INTER_CUBIC`` of images
 at least 4 px wide and high to IPP, whose float code depends on the CPU's
@@ -213,3 +220,165 @@ def resize_u8(img: np.ndarray, w: int, h: int, interp: str = "linear"
         return _resize_area(img, w, h)
     return _resize_linear(img, w, h) if interp == "linear" else \
         _resize_cubic(img, w, h)
+
+
+def rotate_bilinear(img: np.ndarray, angle: float, fill: int) -> np.ndarray:
+    """u8 [H, W] rotated counter-clockwise by ``angle`` degrees about its
+    centre, as Pillow's ``Image.rotate(angle, resample=BILINEAR,
+    expand=False, fillcolor=fill)`` computes it.
+
+    Pillow builds the inverse affine matrix in float64 with cos and sin
+    rounded to 15 decimals, samples at output pixel centres (+0.5), gives
+    the fill to every output pixel whose source point lies outside
+    [0, W) x [0, H), interpolates the rest with the source edges clamped
+    (a missing lower row is left out) and truncates the result.
+    """
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    angle = angle % 360.0
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return np.ascontiguousarray(img[::-1, ::-1])
+    if angle in (90, 270) and w == h:
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else -1))
+    cx, cy = w / 2, h / 2
+    a = -math.radians(angle)
+    m = [round(math.cos(a), 15), round(math.sin(a), 15), 0.0,
+         round(-math.sin(a), 15), round(math.cos(a), 15), 0.0]
+    m[2] = m[0] * -cx + m[1] * -cy + m[2] + cx
+    m[5] = m[3] * -cx + m[4] * -cy + m[5] + cy
+    xo = np.arange(w, dtype=np.float64)[None] + 0.5
+    yo = np.arange(h, dtype=np.float64)[:, None] + 0.5
+    xin = m[0] * xo + m[1] * yo + m[2]
+    yin = m[3] * xo + m[4] * yo + m[5]
+    inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)
+    xin, yin = xin - 0.5, yin - 0.5
+    x, y = np.floor(xin), np.floor(yin)
+    dx, dy = xin - x, yin - y
+    x, y = x.astype(np.int64), y.astype(np.int64)
+    x0, x1 = np.clip(x, 0, w - 1), np.clip(x + 1, 0, w - 1)
+    f = img.astype(np.float64)
+    yc, y2 = np.clip(y, 0, h - 1), np.clip(y + 1, 0, h - 1)
+    p0, p1 = f[yc, x0], f[yc, x1]
+    q0, q1 = f[y2, x0], f[y2, x1]
+    v1 = p0 + (p1 - p0) * dx
+    v2 = q0 + (q1 - q0) * dx
+    v = np.where((y + 1 >= 0) & (y + 1 < h), v1 + (v2 - v1) * dy, v1)
+    return np.where(inside, np.trunc(v), fill).astype(np.uint8)
+
+
+#: Columns per block of OpenCV's vectorised linear warp (two AVX2 vectors
+#: of eight float32 lanes); the columns past the last block take its
+#: scalar code, whose positions round differently.
+_WARP_BLOCK = 16
+_A = _f32(-0.75)
+_ONE = _f32(1)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add, rounded once: the product of two float32
+    values is exact in float64, and the one case where rounding the float64
+    sum to float32 rounds twice (a sum exactly halfway between two float32
+    values that is itself rounded) is resolved by the sum's exact error."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(_f32)
+    r64 = r.astype(np.float64)
+    toward = np.where(s > r64, np.inf, -np.inf).astype(_f32)
+    nb = np.nextafter(r, toward)
+    tie = (s != r64) & (s == (r64 + nb.astype(np.float64)) * 0.5) & (err != 0)
+    if tie.any():
+        up = (err > 0) == (nb > r)
+        r = np.where(tie & up, nb, r)
+    return r
+
+
+def _src_positions(m: np.ndarray, ow: int, oh: int, interp: str):
+    """float32 source positions of the output pixels. Linear: in blocks of
+    16 columns ``fma(x, M0, (y * M1 + M2))``, the remaining columns
+    ``fma(x, M0, y * M1) + M2``; cubic: ``x * M0 + (y * M1 + M2)``."""
+    mf = np.asarray(m, np.float64).astype(_f32).ravel()
+    x = np.broadcast_to(np.arange(ow, dtype=_f32)[None], (oh, ow))
+    y = np.broadcast_to(np.arange(oh, dtype=_f32)[:, None], (oh, ow))
+    out = []
+    for r in (0, 3):
+        if interp == "cubic":
+            out.append(x * mf[r] + (y * mf[r + 1] + mf[r + 2]))
+            continue
+        v = _fma32(x, mf[r], y * mf[r + 1] + mf[r + 2])
+        nv = ow // _WARP_BLOCK * _WARP_BLOCK
+        if nv < ow:
+            t = _fma32(x[:, nv:], mf[r], y[:, nv:] * mf[r + 1]) + mf[r + 2]
+            v[:, nv:] = t
+        out.append(v.astype(_f32))
+    return out
+
+
+def _cubic_weights(t: np.ndarray):
+    """The four float32 cubic weights (A = -0.75) of fraction ``t``."""
+    tm = _ONE - t
+    t2 = t * t
+    w0 = _A * (t * (tm * tm))
+    w1 = _fma32(_fma32(_A + _f32(2), t, -(_A + _f32(3))), t2, _ONE)
+    w3 = _A * (t2 * tm)
+    w2 = ((_ONE - w0) - w1) - w3
+    return w0, w1, w2, w3
+
+
+def warp_affine(src: np.ndarray, m: np.ndarray, size, interp: str,
+                fill: int) -> np.ndarray:
+    """u8 [H, W] -> u8 [size[1], size[0]] as OpenCV 5.0's
+    ``cv2.warpAffine(src, m, size, flags=INTER_LINEAR | INTER_CUBIC |
+    WARP_INVERSE_MAP, borderMode=BORDER_CONSTANT, borderValue=fill)``
+    computes it without IPP: output pixel (x, y) samples source point ``m @
+    (x, y, 1)``.
+
+    Both interpolate in float32 at the exact source position (see
+    ``_src_positions``); a tap outside the image reads ``fill``, and the
+    result is rounded half to even and saturated.
+
+    - linear: ``v0 = fma(a, p01 - p00, p00)``, the same for the lower row,
+      then ``fma(b, v1 - v0, v0)``;
+    - cubic: the weights of ``_cubic_weights`` for each axis, each row a
+      chain ``fma(p3, w3, fma(p2, w2, fma(p1, w1, p0 * w0)))`` and the rows
+      combined by the same chain over the vertical weights.
+    """
+    if interp not in ("linear", "cubic"):
+        raise ValueError(f"interp must be linear or cubic: {interp!r}")
+    src = np.ascontiguousarray(src, np.uint8)
+    h, w = src.shape
+    ow, oh = int(size[0]), int(size[1])
+    sx, sy = _src_positions(m, ow, oh, interp)
+    ix, iy = np.floor(sx), np.floor(sy)
+    a, b = (sx - ix).astype(_f32), (sy - iy).astype(_f32)
+    # Positions far outside only ever read the fill; clamping them keeps
+    # the integer taps small.
+    ix = np.clip(ix, -4, w + 4).astype(np.int64)
+    iy = np.clip(iy, -4, h + 4).astype(np.int64)
+    pad = 8
+    padded = np.full((h + 2 * pad, w + 2 * pad), fill, _f32)
+    padded[pad:pad + h, pad:pad + w] = src
+
+    def tap(dy: int, dx: int) -> np.ndarray:
+        return padded[iy + pad + dy, ix + pad + dx]
+
+    if interp == "linear":
+        v0 = _fma32(a, tap(0, 1) - tap(0, 0), tap(0, 0))
+        v1 = _fma32(a, tap(1, 1) - tap(1, 0), tap(1, 0))
+        v = _fma32(b, v1 - v0, v0)
+    else:
+        wx, wy = _cubic_weights(a), _cubic_weights(b)
+        rows = []
+        for i in range(4):
+            r = tap(i - 1, -1) * wx[0]
+            for j in range(1, 4):
+                r = _fma32(tap(i - 1, j - 1), wx[j], r)
+            rows.append(r)
+        v = rows[0] * wy[0]
+        for i in range(1, 4):
+            v = _fma32(rows[i], wy[i], v)
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)

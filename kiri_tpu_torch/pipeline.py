@@ -1,5 +1,5 @@
-"""The OCR page pipeline: DB detection -> crops -> batched recognition ->
-text (the port of ``kiri_tpu/pipeline.py``).
+"""The OCR page pipeline: DB or CRAFT detection (with optional deskew) ->
+crops -> batched recognition -> text (the port of ``kiri_tpu/pipeline.py``).
 
 ``OCR`` keeps the JAX package's constructor arguments and defaults, decode
 method aliases, result dicts and stream chunks key for key. ``device=None``
@@ -13,9 +13,12 @@ means the card. What differs:
 - pages are u8 arrays; a path is read only where cv2 or PIL can be imported
   (``utils/imageio.py``).
 
-Deskew, CRAFT, the classic-CV detector and word-level detection are not
-ported yet (ROADMAP queue 1): ``deskew=True`` and ``det_method`` other than
-"db" raise.
+On a page the detector deskewed, the crops are cut upright: with
+``deskew_single_resample`` (the default) straight from the original page in
+one rotate-and-scale warp (``detect/deskew.extract_crop_single_resample``),
+otherwise from the rotated page. The classic-CV detector and word-level
+detection are not ported yet (ROADMAP queue 1): ``det_method="legacy"`` and
+``mode="words"`` raise.
 """
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ from .checkpoints import build_model, find_vocab_file, read_meta, \
 from .config import CFG
 from .device import resolve_device
 from .engine import RecognizerEngine
-from .ops.preprocess import (crop_region, enhance_crop, invert_if_dark,
-                             preprocess_crops, preprocess_np, to_gray)
+from .detect.deskew import extract_crop_single_resample, rotate_image
+from .ops.preprocess import (NOISE_SIGMA_THRESH, _despike, crop_region,
+                             enhance_crop, estimate_noise_sigma,
+                             invert_if_dark, preprocess_crops, preprocess_np,
+                             to_gray)
 from .tokenizer import CharTokenizer
 from .utils.imageio import imread_bgr
 from .utils.profiling import StageTimer
@@ -84,13 +90,10 @@ class OCR:
                 DeprecationWarning, stacklevel=2)
             decode_method = "beam" if use_beam_search else "fast"
         decode_method = self._normalize_decode_method(decode_method)
-        if deskew:
-            raise NotImplementedError("deskew is not ported yet (ROADMAP "
-                                      "queue 1: deskew)")
-        if det_method != "db":
+        if det_method not in ("db", "craft"):
             raise NotImplementedError(
                 f"det_method={det_method!r} is not ported yet (ROADMAP queue "
-                f"1: CRAFT and the classic-CV detector)")
+                f"1: the classic-CV detector)")
 
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -98,6 +101,8 @@ class OCR:
         self.det_model_path = det_model_path
         self.det_method = det_method
         self.det_conf_threshold = det_conf_threshold
+        #: Straighten skewed pages inside the detector (detect/deskew.py);
+        #: result boxes stay in the input frame.
         self.deskew = deskew
         #: Adaptive crop cleanup for degraded captures (host:
         #: ops/preprocess.enhance_crop; device: kernels/resize.enhance_lines).
@@ -106,6 +111,8 @@ class OCR:
         #: det_map_downsample, ...).
         self.det_kwargs = dict(det_kwargs or {})
         self.upload_bits = upload_bits
+        #: On a deskewed page, cut each crop from the original page in one
+        #: rotate-and-scale warp instead of from the rotated page.
         self.deskew_single_resample = deskew_single_resample
         #: Window of incremental character streaming; None -> the
         #: checkpoint's cfg.STREAM_WINDOW, 0 -> one-shot decode and replay.
@@ -122,6 +129,9 @@ class OCR:
         if self.stream_window is None:
             self.stream_window = self.cfg.STREAM_WINDOW
         self._detector = None
+        # Set per page by _deskew_crop_view: True when the crops come from
+        # the rotated page (the sharpen repair applies to them).
+        self._crops_resampled = False
 
     # ------------------------------------------------------------ utilities
     def _stream_window_for(self, method: str) -> Optional[int]:
@@ -201,7 +211,7 @@ class OCR:
             self._detector = TextDetector(
                 method=self.det_method, model_path=self.det_model_path,
                 conf_threshold=self.det_conf_threshold, device=self.device,
-                **self.det_kwargs)
+                deskew=self.deskew, **self.det_kwargs)
         return self._detector
 
     # ------------------------------------------------------------ recognition
@@ -291,17 +301,80 @@ class OCR:
         self.last_timer = timer
         return results
 
+    def _deskew_crop_view(self, img_gray, boxes):
+        """(page, boxes) to cut the crops from: the detector's rotated page
+        and its boxes when it deskewed this page, else the page itself.
+        Result boxes stay in the input frame either way."""
+        det = self._detector
+        if (self.deskew and det is not None and det.last_deskew_boxes
+                and len(det.last_deskew_boxes) == len(boxes)):
+            self._crops_resampled = True
+            return (det.last_deskewed_image,
+                    [b.bbox for b in det.last_deskew_boxes])
+        self._crops_resampled = False
+        return img_gray, boxes
+
     def _cut_crops(self, img_gray, boxes, extra_padding: int = 5):
-        """(gray u8 crops, indices of the boxes kept, sharpen flags) of the
-        boxes of an upright page; empty crops are dropped."""
+        """(gray u8 crops, indices of the boxes kept, sharpen flags) of a
+        page's input-frame ``boxes``; empty crops are dropped.
+
+        On a deskewed page with ``deskew_single_resample``, each crop is
+        warped from the original page at the model's height
+        (``extract_crop_single_resample``; sharpen False); a crop the warp
+        refuses (a strong downscale) is cut from the rotated page (sharpen
+        True). With ``enhance`` on a noisy page (noise sigma above
+        ``NOISE_SIGMA_THRESH``), the page is despiked once, on the first
+        crop that needs it, the warps are linear, and the refused crops are
+        cut from the despiked page rotated again.
+        """
+        crop_img, crop_boxes = self._deskew_crop_view(img_gray, boxes)
         crops: List[np.ndarray] = []
         kept: List[int] = []
-        for i, box in enumerate(boxes):
-            roi = crop_region(img_gray, box, extra_padding)
-            if roi is not None:
-                crops.append(to_gray(roi))
-                kept.append(i)
-        return crops, kept, [False] * len(crops)
+        sharpen: List[bool] = []
+        angle = 0.0
+        fill = None
+        if self._crops_resampled and self.deskew_single_resample:
+            angle = float(self._detector.last_deskew_angle)
+        noise_gate = bool(angle and self.enhance and estimate_noise_sigma(
+            img_gray) > NOISE_SIGMA_THRESH)
+        warp_interp = "linear" if noise_gate else None
+        lazy: Dict[str, np.ndarray] = {}
+
+        def warp_src() -> np.ndarray:
+            if "warp" not in lazy:
+                lazy["warp"] = (np.clip(_despike(img_gray.astype(np.float32)),
+                                        0.0, 255.0).astype(np.uint8)
+                                if noise_gate else img_gray)
+            return lazy["warp"]
+
+        def fallback_view() -> np.ndarray:
+            if not noise_gate:
+                return crop_img
+            if "fb" not in lazy:
+                lazy["fb"] = rotate_image(warp_src(), -angle)
+            return lazy["fb"]
+
+        for i, box in enumerate(crop_boxes):
+            roi = None
+            resampled = self._crops_resampled
+            if angle:
+                if fill is None:
+                    fill = int(np.median(img_gray))
+                roi = extract_crop_single_resample(
+                    warp_src(), angle, box, self.cfg.IMG_H,
+                    extra_padding=extra_padding, fill=fill,
+                    interp=warp_interp)
+                if roi is not None:
+                    resampled = False
+            if roi is None:
+                roi = crop_region(fallback_view() if angle else crop_img,
+                                  box, extra_padding)
+            if roi is None:
+                continue
+            crops.append(to_gray(roi))
+            kept.append(i)
+            sharpen.append(resampled)
+        return crops, kept, sharpen
 
     def _recognize_regions(self, img_gray, boxes, timer=None):
         """Crop, preprocess ("host": numpy; "device": the preprocess kernel
@@ -500,16 +573,24 @@ class OCR:
             yield result
 
     @staticmethod
-    def _assemble_text(results: List[Dict]) -> str:
+    def _assemble_text(results: List[Dict],
+                       group_boxes: Optional[List] = None) -> str:
         """Region texts joined into the document text: regions whose
-        vertical centres lie within 80% of the larger height share a
-        line."""
+        vertical centres lie within 80% of the larger height share a line.
+
+        ``group_boxes`` (aligned with ``results``; None entries fall back to
+        the result's box) gives the geometry to group by: on a deskewed page
+        the upright boxes, since the input-frame hulls grow by about width
+        x sin(angle) and would merge neighbouring lines."""
         lines: List[str] = []
         current_line: List[str] = []
         prev_center_y = None
         prev_height = None
-        for res in results:
-            y, h = res["box"][1], res["box"][3]
+        for i, res in enumerate(results):
+            if group_boxes is not None and group_boxes[i] is not None:
+                y, h = group_boxes[i][1], group_boxes[i][3]
+            else:
+                y, h = res["box"][1], res["box"][3]
             center_y = y + h / 2
             if prev_center_y is not None:
                 tolerance = max(h, prev_height) * 0.8
@@ -532,7 +613,30 @@ class OCR:
         results = self.process_document(image_path, mode, verbose=verbose)
         if not results:
             return "", results
-        return self._assemble_text(results), results
+        return (self._assemble_text(results, self._group_boxes_for(results)),
+                results)
+
+    def _group_boxes_for(self, results: List[Dict]) -> Optional[List]:
+        """The upright boxes of ``results`` (by line_number) when the
+        detector deskewed the last page, else None."""
+        det = self._detector
+        if not (self.deskew and det is not None and det.last_deskew_boxes):
+            return None
+        return self._align_twins([b.bbox for b in det.last_deskew_boxes],
+                                 results)
+
+    @staticmethod
+    def _align_twins(twins: Optional[List], results: List[Dict]
+                     ) -> Optional[List]:
+        """A page's upright boxes (by detected box) aligned with its result
+        rows (by line_number - 1)."""
+        if twins is None:
+            return None
+        out = []
+        for res in results:
+            bi = res.get("line_number", 0) - 1
+            out.append(twins[bi] if 0 <= bi < len(twins) else None)
+        return out
 
     # ------------------------------------------------- multi-document batch
     def process_documents(self, image_paths, mode: str = "lines",
@@ -548,6 +652,7 @@ class OCR:
         per_doc: List = [None] * n_docs     # (boxes, det_confs, kept)
         doc_pool: List = [None] * n_docs    # host: (batch, widths);
         #                                     device: (crops, sharpen)
+        doc_twins: List = [None] * n_docs   # upright boxes of deskewed pages
 
         def prep_page(di, boxes, det_confs):
             img_gray = self._load_gray(image_paths[di])
@@ -558,12 +663,18 @@ class OCR:
                 doc_pool[di] = preprocess_crops(
                     self.cfg, crops, enhance=self.enhance, sharpen=sharpen)
             per_doc[di] = (boxes, det_confs, kept)
+            det = self._detector
+            if self.deskew and det is not None and det.last_deskew_boxes:
+                doc_twins[di] = [b.bbox for b in det.last_deskew_boxes]
             if verbose:
                 print(f"🔍 {image_paths[di]}: {len(boxes)} regions")
 
         if mode == "lines":
-            for di, tbs in self.detector.iter_lines_objects_batch(
-                    image_paths):
+            det = self.detector
+            for di, tbs in det.iter_lines_objects_batch(image_paths):
+                # This page's deskew state, for its crops.
+                (det.last_deskewed_image, det.last_deskew_boxes,
+                 det.last_deskew_angle) = det.last_batch_state[di]
                 prep_page(di, [b.bbox for b in tbs],
                           [b.confidence for b in tbs])
         else:
@@ -593,6 +704,8 @@ class OCR:
                 results.append(self._row(boxes[bi], text, confidence,
                                          det_confs[bi], bi + 1))
             all_results.append(results)
+        # The upright boxes of each page for extract_text_batch's grouping.
+        self._last_batch_twins = doc_twins
         return all_results
 
     def extract_text_batch(self, image_paths, mode: str = "lines",
@@ -600,6 +713,7 @@ class OCR:
                            ) -> List[Tuple[str, List[Dict]]]:
         """``extract_text`` of many pages with one pooled recognition pass
         (``process_documents``)."""
-        return [(self._assemble_text(res) if res else "", res)
-                for res in self.process_documents(image_paths, mode,
-                                                  verbose=verbose)]
+        docs = self.process_documents(image_paths, mode, verbose=verbose)
+        return [(self._assemble_text(res, self._align_twins(tw, res))
+                 if res else "", res)
+                for res, tw in zip(docs, self._last_batch_twins)]

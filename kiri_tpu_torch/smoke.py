@@ -7,7 +7,8 @@ renderer:
   enhancement path;
 - ``assets/smoke_pages.npz`` (``scripts/make_torch_smoke_pages.py``): 9
   rendered bilingual pages, their ground truth and the JAX package's
-  detections and ``process_document`` results.
+  detections and ``process_document`` results; 3 rotated pages with its
+  deskew answers, and its CRAFT answers on all 12.
 """
 from __future__ import annotations
 
@@ -50,12 +51,14 @@ def _cut(flat: np.ndarray, counts: np.ndarray) -> List[np.ndarray]:
 
 
 def load_smoke_pages() -> Dict:
-    """The committed pages, one dict per page: ``image`` (u8 [H, W]),
+    """The committed upright pages in ``pages``, one dict per page:
+    ``image`` (u8 [H, W]),
     ``lines`` and ``texts`` (ground truth), ``spec`` (width, height,
     layout, condition, seed, lines from the short-text pool), ``det_quads`` / ``det_scores`` (the JAX
     package's ``DBDetector.detect_text``), ``boxes`` / ``box_conf`` (its
     ``TextDetector.detect_lines_objects``); with ``results`` ({run: one
-    result list per page}), ``prob_page`` and ``prob_u16``."""
+    result list per page}), ``prob_page`` and ``prob_u16``; and the rotated
+    pages and CRAFT answers of ``_rotated_and_craft``."""
     with np.load(SMOKE_PAGES) as f:
         d = {k: f[k] for k in f.files}
     images = _split(d["pages_flat"], d["page_shapes"])
@@ -75,4 +78,53 @@ def load_smoke_pages() -> Dict:
                       "boxes": [tuple(map(int, b)) for b in boxes],
                       "box_conf": conf})
     return {"pages": pages, "results": json.loads(str(d["results"])),
-            "prob_page": int(d["prob_page"]), "prob_u16": d["prob_u16"]}
+            "prob_page": int(d["prob_page"]), "prob_u16": d["prob_u16"],
+            **_rotated_and_craft(d)}
+
+
+def _boxes(rows: np.ndarray) -> List[tuple]:
+    return [tuple(map(int, b)) for b in rows]
+
+
+def _rotated_and_craft(d: Dict[str, np.ndarray]) -> Dict:
+    """``rot_pages``: the 3 rotated pages (``image``, ``spec``, ``lines``
+    and ``upright_lines`` (ground truth in the page's and in the upright
+    frame), ``texts``, and per detector in ``deskew``: ``angle``, ``boxes``,
+    ``box_conf``, ``twins`` (the upright boxes)); ``skew_angles`` of the 12
+    pages (the 9 upright ones, then the rotated); ``craft``: one dict per
+    page of the 12 (``quads``, ``scores``, ``boxes``, ``box_conf``);
+    ``craft_maps`` {page: float16 [2, h, w]}; ``craft_poly`` (page, list of
+    outlines); ``results_rot`` ({run: one result list per page of the
+    12})."""
+    rot = []
+    counts = d["rot_gt_counts"]
+    specs = json.loads(str(d["rot_page_specs"]))
+    for j, (img, lines, upright, texts) in enumerate(zip(
+            _split(d["rot_pages_flat"], d["rot_page_shapes"]),
+            _cut(d["rot_gt_lines"], counts), _cut(d["rot_gt_upright"], counts),
+            _cut(d["rot_gt_texts"], counts))):
+        rot.append({"image": img, "spec": specs[j], "lines": _boxes(lines),
+                    "upright_lines": _boxes(upright),
+                    "texts": [str(t) for t in texts], "deskew": {}})
+    for m in ("db", "craft"):
+        n = d[f"deskew_{m}_counts"]
+        for page, angle, boxes, conf, twins in zip(
+                rot, d[f"deskew_{m}_angle"], _cut(d[f"deskew_{m}_boxes"], n),
+                _cut(d[f"deskew_{m}_conf"], n),
+                _cut(d[f"deskew_{m}_twins"], n)):
+            page["deskew"][m] = {"angle": float(angle),
+                                 "boxes": _boxes(boxes), "box_conf": conf,
+                                 "twins": _boxes(twins)}
+    craft = [{"quads": q, "scores": s, "boxes": _boxes(b), "box_conf": c}
+             for q, s, b, c in zip(
+                 _cut(d["craft_quads"], d["craft_counts"]),
+                 _cut(d["craft_scores"], d["craft_counts"]),
+                 _cut(d["craft_boxes"], d["craft_box_counts"]),
+                 _cut(d["craft_conf"], d["craft_box_counts"]))]
+    poly = _cut(d["craft_poly_pts"], d["craft_poly_sizes"])
+    return {"rot_pages": rot, "skew_angles": d["skew_angles"],
+            "craft": craft,
+            "craft_maps": {int(i): d[f"craft_maps_{int(i)}"]
+                           for i in d["craft_map_pages"]},
+            "craft_poly": (int(d["craft_poly_page"]), poly),
+            "results_rot": json.loads(str(d["results_rot"]))}

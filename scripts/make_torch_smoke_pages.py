@@ -42,6 +42,33 @@ The file holds:
   (``enhance=True``, the noisy page only; the other pages' lists are
   empty).
 
+Three rotated 640x640 pages follow (docsynth's "rotated" condition, 2-6
+degrees: a single-column and a title-paragraph page, and a single-column
+page rotated and then made noisy, where ``OCR(enhance=True)`` despikes the
+page before its warps), with CRAFT (``models/craft.safetensors``) over all
+twelve pages (the nine above, then the three rotated):
+
+* ``rot_pages_flat`` / ``rot_page_shapes`` / ``rot_page_specs``,
+  ``rot_gt_lines`` / ``rot_gt_upright`` (the boxes before the rotation) /
+  ``rot_gt_texts`` / ``rot_gt_counts``: the rotated pages and their ground
+  truth;
+* ``skew_angles`` [12]: ``estimate_skew`` of every page;
+* ``deskew_{db,craft}_angle`` [3], ``deskew_{db,craft}_boxes`` /
+  ``_conf`` / ``_twins`` (the upright boxes) / ``_counts``:
+  ``TextDetector(method, deskew=True).detect_lines_objects`` of the
+  rotated pages;
+* ``craft_quads`` [k, 4, 2] float32 / ``craft_scores`` / ``craft_counts``:
+  ``CRAFTDetector.detect_text`` of every page; ``craft_boxes`` /
+  ``craft_conf`` / ``craft_box_counts``: ``TextDetector("craft")``'s
+  boxes;
+* ``craft_map_pages`` [2] and ``craft_maps_<i>`` float16 [2, h, w]: the
+  region and affinity maps of two pages; ``craft_poly_page``,
+  ``craft_poly_pts`` / ``craft_poly_sizes``: ``detect_text(poly=True)`` of
+  one page;
+* ``results_rot``: a JSON string ``{run: [result dicts of each of the
+  twelve pages]}`` for the runs of ``ROT_RUNS`` (pages a run skips have
+  empty lists).
+
 cv2 is run with IPP off (``cv2.ipp.setUseIPP(False)``): with IPP, cv2's
 cubic resize depends on the CPU's instruction set, and the port follows
 OpenCV's own code (``kiri_tpu_torch/ops/imgproc.py``). The arrays the file
@@ -77,6 +104,38 @@ PAGES = ((640, 640, "single_column", "clean", True),
 KHMER_RATIO = 0.4
 PROB_PAGE = 1
 NOISY_PAGE = 7
+#: (layout, condition): rotated pages, indices 9-11 of the twelve.
+ROT_PAGES = (("single_column", "rotated"), ("title_paragraph", "rotated"),
+             ("single_column", "rotated+noisy"))
+ROT_NOISY = 11
+#: Pages whose CRAFT maps are stored; the page of the poly=True boxes.
+CRAFT_MAP_PAGES = (3, 9)
+CRAFT_POLY_PAGE = 0
+ALL = range(12)
+ROT = range(9, 12)
+#: (run, OCR arguments, pages) of ``results_rot``.
+ROT_RUNS = tuple(
+    [(f"db_deskew_{m}_{t}", dict(decode_method=m, use_fp16=t == "bf16",
+                                 deskew=True), ROT)
+     for m in ("fast", "accurate") for t in ("f32", "bf16")]
+    + [(f"db_deskew_{m}_f32_twostep",
+        dict(decode_method=m, use_fp16=False, deskew=True,
+             deskew_single_resample=False), ROT)
+       for m in ("fast", "accurate")]
+    + [("db_deskew_fast_f32_device", dict(decode_method="fast",
+                                          use_fp16=False, deskew=True,
+                                          preprocess="device"), ROT),
+       ("db_deskew_fast_f32_enhance", dict(decode_method="fast",
+                                           use_fp16=False, deskew=True,
+                                           enhance=True), (ROT_NOISY,)),
+       ("db_fast_bf16", dict(decode_method="fast", use_fp16=True), ROT)]
+    + [(f"craft_{m}_{t}", dict(det_method="craft", decode_method=m,
+                               use_fp16=t == "bf16"), ALL)
+       for m in ("fast", "accurate") for t in ("f32", "bf16")]
+    + [(f"craft_deskew_fast_f32{sfx}",
+        dict(det_method="craft", decode_method="fast", use_fp16=False,
+             deskew=True, deskew_single_resample=sr), ROT)
+       for sfx, sr in (("", True), ("_twostep", False))])
 
 
 def text_pool(charset: str, n: int = 600):
@@ -105,6 +164,114 @@ def render_pages(charset: str):
     return docs, specs
 
 
+def render_rotated(charset: str):
+    from kiri_tpu.data.docsynth import DocumentGenerator, apply_condition
+
+    pool = text_pool(charset)
+    docs, uprights, specs = [], [], []
+    for j, (layout, cond) in enumerate(ROT_PAGES):
+        seed = SEED + 101 * (len(PAGES) + j)
+        doc = DocumentGenerator(640, 640, seed=seed, khmer_ratio=KHMER_RATIO,
+                                texts=pool).generate(layout)
+        uprights.append(list(doc["lines"]))
+        doc = apply_condition(doc, "rotated", random.Random(seed))
+        if cond.endswith("+noisy"):
+            doc = apply_condition(doc, "noisy", random.Random(seed + 1))
+        docs.append(doc)
+        specs.append((640, 640, layout, cond, seed, True))
+    return docs, uprights, specs
+
+
+def craft_and_deskew(pages, rot_docs, rot_uprights, rot_specs, ckpt,
+                     det_path, craft_path):
+    """The arrays of the rotated pages, CRAFT and deskew, and
+    ``results_rot``."""
+    from kiri_tpu.detect import TextDetector
+    from kiri_tpu.detect.craft import CRAFTDetector
+    from kiri_tpu.detect.deskew import estimate_skew
+    from kiri_tpu.pipeline import OCR
+
+    rot = [np.ascontiguousarray(d["image"], np.uint8) for d in rot_docs]
+    every = pages + rot
+    out = {
+        "rot_pages_flat": np.concatenate([p.ravel() for p in rot]),
+        "rot_page_shapes": np.asarray([p.shape for p in rot], np.int32),
+        "rot_page_specs": np.asarray(json.dumps(rot_specs)),
+        "rot_gt_lines": np.asarray([b for d in rot_docs for b in d["lines"]],
+                                   np.int32),
+        "rot_gt_upright": np.asarray([b for u in rot_uprights for b in u],
+                                     np.int32),
+        "rot_gt_texts": np.asarray([t for d in rot_docs for t in d["texts"]]),
+        "rot_gt_counts": np.asarray([len(d["texts"]) for d in rot_docs],
+                                    np.int32),
+        "skew_angles": np.asarray([estimate_skew(p) for p in every],
+                                  np.float64),
+    }
+    for method, path in (("db", det_path), ("craft", craft_path)):
+        td = TextDetector(method, path, deskew=True)
+        assert td.method == method, "kiri_tpu fell back to another detector"
+        boxes, twins, angles = [], [], []
+        for p in rot:
+            boxes.append(td.detect_lines_objects(p))
+            # Every rotated page must be straightened: the boxes and their
+            # upright twins share one count.
+            assert td.last_deskew_angle, f"{method}: deskew did not fire"
+            twins.append([b.bbox for b in td.last_deskew_boxes])
+            angles.append(td.last_deskew_angle)
+        out.update({
+            f"deskew_{method}_angle": np.asarray(angles, np.float64),
+            f"deskew_{method}_boxes": np.asarray(
+                [b.bbox for bs in boxes for b in bs], np.int32),
+            f"deskew_{method}_conf": np.asarray(
+                [b.confidence for bs in boxes for b in bs], np.float64),
+            f"deskew_{method}_twins": np.asarray(
+                [t for ts in twins for t in ts], np.int32),
+            f"deskew_{method}_counts": np.asarray(list(map(len, boxes)),
+                                                  np.int32),
+        })
+    craft = CRAFTDetector(craft_path)
+    dets = [craft.detect_text(p) for p in every]
+    facade = TextDetector("craft", craft_path)
+    assert facade.method == "craft", "kiri_tpu fell back to another detector"
+    fboxes = [facade.detect_lines_objects(p) for p in every]
+    poly = craft.detect_text(every[CRAFT_POLY_PAGE], poly=True)
+    out.update({
+        "craft_quads": np.asarray([q for d in dets for q, _ in d],
+                                  np.float32),
+        "craft_scores": np.asarray([s for d in dets for _, s in d],
+                                   np.float64),
+        "craft_counts": np.asarray(list(map(len, dets)), np.int32),
+        "craft_boxes": np.asarray([b.bbox for bs in fboxes for b in bs],
+                                  np.int32),
+        "craft_conf": np.asarray([b.confidence for bs in fboxes for b in bs],
+                                 np.float64),
+        "craft_box_counts": np.asarray(list(map(len, fboxes)), np.int32),
+        "craft_map_pages": np.asarray(CRAFT_MAP_PAGES, np.int32),
+        "craft_poly_page": np.asarray(CRAFT_POLY_PAGE, np.int32),
+        "craft_poly_pts": np.concatenate([q for q, _ in poly]).astype(
+            np.float32),
+        "craft_poly_sizes": np.asarray([len(q) for q, _ in poly], np.int32),
+    })
+    for i in CRAFT_MAP_PAGES:
+        region, affinity, _ = craft.predict_maps(craft._load_gray(every[i]))
+        out[f"craft_maps_{i}"] = np.stack([region, affinity]).astype(
+            np.float16)
+
+    results = {}
+    for name, kw, which in ROT_RUNS:
+        t0 = time.perf_counter()
+        OCR._model_cache.clear()
+        det = craft_path if kw.get("det_method") == "craft" else det_path
+        ocr = OCR(ckpt, det_model_path=det, **kw)
+        results[name] = [ocr.process_document(p) if i in which else []
+                         for i, p in enumerate(every)]
+        assert ocr.detector.method == kw.get("det_method", "db")
+        print(f"{name}: {sum(map(len, results[name]))} lines in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["results_rot"] = np.asarray(json.dumps(results, ensure_ascii=False))
+    return out
+
+
 def main() -> None:
     import cv2
     import jax
@@ -122,9 +289,9 @@ def main() -> None:
     det_path = str(REPO / "models" / "detector.safetensors")
     _, cfg, meta = load_checkpoint(ckpt)
     tok = CharTokenizer(find_vocab_file(meta.get("vocab_path", ""), ckpt), cfg)
-    docs, specs = render_pages("".join(
-        t for t in tok.token_to_id
-        if len(t) == 1 and t.isascii() and t.isprintable()))
+    charset = "".join(t for t in tok.token_to_id
+                      if len(t) == 1 and t.isascii() and t.isprintable())
+    docs, specs = render_pages(charset)
     pages = [np.ascontiguousarray(d["image"], np.uint8) for d in docs]
     out = {
         "pages_flat": np.concatenate([p.ravel() for p in pages]),
@@ -173,6 +340,14 @@ def main() -> None:
         print(f"{name}: {sum(map(len, results[name]))} lines in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["results"] = np.asarray(json.dumps(results, ensure_ascii=False))
+
+    t0 = time.perf_counter()
+    rot_docs, rot_uprights, rot_specs = render_rotated(charset)
+    out.update(craft_and_deskew(pages, rot_docs, rot_uprights, rot_specs,
+                                ckpt, det_path,
+                                str(REPO / "models" / "craft.safetensors")))
+    print(f"rotated pages, CRAFT and deskew: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     if OUT.exists():
         with np.load(OUT) as old:

@@ -13,7 +13,8 @@ two-column page with a box that ``_split_column_merges`` splits).
   counts), with ``det_map_downsample`` 1 and 2;
 - ``TextDetector.detect_lines_objects`` / ``iter_lines_objects_batch``:
   identical ``TextBox``es, pages yielded in kiri_tpu's order;
-- where kiri_tpu falls back to its classic-CV detector, the port raises.
+- where kiri_tpu falls back to its classic-CV detector, the port raises
+  (the CRAFT route's own cases are in tests/test_torch_craft.py).
 
 cv2 runs with IPP off (see tests/test_torch_imgproc.py)."""
 from __future__ import annotations
@@ -203,10 +204,10 @@ def test_no_fallback_to_another_detector(pages, monkeypatch):
     assert JTextDetector("db", "missing.safetensors").method == "legacy"
     with pytest.raises(FileNotFoundError):
         TextDetector("db", "missing.safetensors", device="cpu")
-    with pytest.raises(NotImplementedError, match="CRAFT"):
-        TextDetector("craft", device="cpu")
-    with pytest.raises(NotImplementedError, match="deskew"):
-        TextDetector("db", DET, device="cpu", deskew=True)
+    with pytest.raises(FileNotFoundError):
+        TextDetector("craft", "missing.safetensors", device="cpu")
+    with pytest.raises(NotImplementedError, match="classic-CV"):
+        TextDetector("legacy", device="cpu")
     with pytest.raises(NotImplementedError, match=r"\.onnx|ONNX"):
         DBDetector("detector.onnx", device="cpu")
     ttd = TextDetector("db", DET, device="cpu")

@@ -80,9 +80,11 @@ def test_decode_method_surface(small_ckpt):
     t = OCR(small_ckpt, device="cpu")
     assert (t.stream_window, t._stream_window_for("beam"),
             t._stream_window_for("decoder")) == (16, 16, None)
-    for kw in (dict(deskew=True), dict(det_method="craft")):
-        with pytest.raises(NotImplementedError):
-            OCR(small_ckpt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="classic-CV"):
+        OCR(small_ckpt, device="cpu", det_method="legacy")
+    t = OCR(small_ckpt, det_model_path=DET, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t.process_document(np.full((64, 64), 255, np.uint8), mode="words")
 
 
 def test_model_cache_is_keyed_on_the_dtype():
