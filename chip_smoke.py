@@ -70,7 +70,22 @@
    and 8, device ms, peak memory, cuDNN FFT share), the host ms of the
    deskew stages, pages/s of ``process_documents`` for CRAFT and for DB +
    deskew, and the device's busy share of a page;
-7. prints one throughput line per method, one line per streamed method with
+7. the legacy and word-level phase (each run with the counters at 0): the
+   classic-CV detector's lines, words, blocks, characters and
+   ``detect_all`` on the thirteen stored pages (the twelve above and a
+   tinted colour page), legacy + deskew on the rotated pages and blocks
+   over DB lines, all equal to kiri_tpu's stored boxes; float32 "fast"
+   texts of ``det_method="legacy"`` and of ``mode="words"`` equal the
+   stored texts on identical boxes (confidences within 1e-3), the pooled
+   ``process_documents`` equal to the per-page results, a
+   ``preprocess="device"`` words run (the preprocess kernel), bf16 legacy
+   line CER per script within the gate (or kiri_tpu's own + 0.005);
+   ``python -m kiri_tpu_torch.cli predict --no-render --mode words
+   --det-method legacy`` on a PNG the port wrote, as a subprocess, equal to
+   the in-process ``extract_text``; ``create_report``'s embedded PNG. Then
+   the detector's host ms by stage, pages/s of ``process_documents`` for
+   legacy lines and for words, and the device's busy share of a page;
+8. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -80,10 +95,12 @@ needs the rest of the repository beside it and a CUDA device.
 """
 from __future__ import annotations
 
+import base64
 import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import unicodedata
 from pathlib import Path
@@ -119,6 +136,7 @@ PAGES_TIMED = 32          # pages of a timed process_documents call
 PAGE_CER_SLACK = 0.005    # bf16 page line CER above kiri_tpu's own
 CRAFT_MAP_STEPS = 2       # float16 steps of a CRAFT map value
 STREAM_WINDOWS_TIMED = (1, 4, 8, 16, 32)
+WORDS_DEVICE_MAX = 200    # words of a page for the device-preprocess run
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
 
@@ -1290,6 +1308,243 @@ def rotated_pages_phase(torch, np, drive, card):
               f"({100 * dv / h:.1f}%)", flush=True)
 
 
+def _tree(boxes):
+    return [[list(b.bbox), b.level.value, _tree(b.children)] for b in boxes]
+
+
+def _timed_stages(det):
+    """Wrap the classic-CV detector's stages on ``det`` with host timers:
+    returns {stage: seconds} that the calls add to, and {stage + " max":
+    the slowest call's seconds}. The connected components of the candidate
+    scoring are ``_binarize`` less the candidate sweep."""
+    spent = {}
+    for name in ("_binary_candidates", "_binarize", "_mser_components",
+                 "_gradient_components", "_nms_boxes", "_group_into_lines"):
+        fn = getattr(det, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            dt = time.perf_counter() - t0
+            spent[_name] = spent.get(_name, 0.0) + dt
+            spent[_name + " max"] = max(spent.get(_name + " max", 0.0), dt)
+            return out
+        setattr(det, name, timed)
+    return spent
+
+
+def legacy_pages_phase(torch, np, drive, card):
+    """The classic-CV detector and word-level pages on the card at full
+    width, against kiri_tpu's stored answers on the 13 pages (9 upright, 3
+    rotated, the colour page): every box list of the detector's levels,
+    legacy + deskew, blocks over DB lines; float32 "fast" texts of
+    ``det_method="legacy"`` and of ``mode="words"``; bf16 line CER; device
+    preprocessing of words; the ``predict`` command line as a subprocess;
+    ``create_report``. Then host ms by stage, pages/s and the device's busy
+    share."""
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.detect.legacy import ImageProcessingTextDetector
+    from kiri_tpu_torch.evalpage import is_khmer, score_pages
+    from kiri_tpu_torch.native import cvops as native_cvops
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.renderer import DocumentRenderer
+    from kiri_tpu_torch.smoke import load_smoke_pages
+    from kiri_tpu_torch.utils.imageio import imwrite_png, png_to_bgr, read_png
+
+    fx = load_smoke_pages()
+    leg = fx["legacy"]
+    color = leg["color_page"]
+    gt_pages = fx["pages"] + fx["rot_pages"] + [
+        {"lines": fx["pages"][0]["lines"], "texts": fx["pages"][0]["texts"]}]
+    imgs = [p["image"] for p in fx["pages"] + fx["rot_pages"]] + [color]
+    stored = fx["results_legacy"]
+    ckpt = str(REPO / "models" / "model.safetensors")
+    det_path = str(REPO / "models" / "detector.safetensors")
+
+    # The native library is built at first use: before any timing.
+    t0 = time.perf_counter()
+    native_cvops.get_lib()
+    print(f"legacy: native/cvops.cpp built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The detector's levels, page by page, and the host ms of its stages.
+    det = ImageProcessingTextDetector()
+    spent = _timed_stages(det)
+    levels = {"lines": det.detect_lines, "words": det.detect_words,
+              "blocks": det.detect_blocks, "chars": det.detect_characters}
+    bad, per_page_ms = [], []
+    for i, im in enumerate(imgs):
+        t0 = time.perf_counter()
+        got = {"lines": levels["lines"](im)}
+        per_page_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in ("words", "blocks", "chars"):
+            got[k] = levels[k](im)
+        bad += [(i, k) for k in levels if got[k] != leg[k][i]]
+        if _tree(det.detect_all(im)) != leg["all"][i]:
+            bad.append((i, "all"))
+    check(not bad, f"legacy: lines, words, blocks, characters and "
+          f"detect_all equal kiri_tpu's stored answers on {len(imgs)} pages "
+          f"({sum(map(len, leg['lines']))} lines, "
+          f"{sum(map(len, leg['words']))} words, "
+          f"{sum(map(len, leg['chars']))} characters)"
+          + (f"; differing {bad[:6]}" if bad else ""))
+    calls = 5 * len(imgs)   # every level computes the components again
+    ms = {k: v * 1e3 / calls for k, v in spent.items()}
+    scoring = ms["_binarize"] - ms["_binary_candidates"]
+    print(f"legacy detector host ms a page (mean over {calls} level calls "
+          f"on {len(imgs)} pages; {card}): candidate sweep "
+          f"{ms['_binary_candidates']:.2f}, candidate scoring by connected "
+          f"components {scoring:.2f}, MSER {ms['_mser_components']:.2f}, "
+          f"gradient {ms['_gradient_components']:.2f}, NMS "
+          f"{ms['_nms_boxes']:.2f}, grouping {ms['_group_into_lines']:.2f} "
+          f"(its slowest call "
+          f"{spent['_group_into_lines max'] * 1e3:.1f} ms); "
+          f"detect_lines of the 1280x1280 page (12,058 components) "
+          f"{per_page_ms[5]:.1f} ms, of all {len(imgs)} pages "
+          + ", ".join(f"{v:.0f}" for v in per_page_ms)
+          + " ms (kiri_tpu's detect_lines took 108-85,320 ms a page on "
+          "another host's CPU, 85,320 on the 1280x1280 page)", flush=True)
+
+    desk = TextDetector("legacy", deskew=True, device="cuda")
+    ok = True
+    for p in fx["rot_pages"]:
+        want = p["deskew"]["legacy"]
+        boxes = [b.bbox for b in desk.detect_lines_objects(p["image"])]
+        ok &= (boxes == want["boxes"]
+               and [b.bbox for b in desk.last_deskew_boxes] == want["twins"]
+               and desk.last_deskew_angle == want["angle"])
+    check(ok, f"legacy + deskew: angles, boxes and upright boxes of the "
+          f"{len(fx['rot_pages'])} rotated pages equal kiri_tpu's")
+    db = TextDetector("db", det_path, device="cuda")
+    blocks = [db.detect_blocks(im) for im in imgs[:12]]
+    check(blocks == fx["db_blocks"],
+          f"blocks over DB lines equal kiri_tpu's on 12 pages "
+          f"({sum(map(len, blocks))} blocks)")
+
+    def ocr(**kw):
+        return OCR(ckpt, det_model_path=det_path, device="cuda", **kw)
+
+    def hold(run, res, what):
+        want = stored[run]
+        boxes_same = all([r["box"] for r in g] == [r["box"] for r in w]
+                         for g, w in zip(res, want))
+        n, same, worst, diff = _stored_agree(res, want)
+        check(boxes_same and n == sum(map(len, want)) and not diff
+              and worst <= TOL_CONF_F32,
+              f"{what}: boxes of {len(res)} pages equal kiri_tpu's; {same}/{n}"
+              f" texts equal its stored float32 texts, max |conf diff| "
+              f"{worst:.2e} (tol {TOL_CONF_F32:g})"
+              + (f"; first differences {diff[:3]}" if diff else ""))
+        return res
+
+    f32_leg = ocr(det_method="legacy", decode_method="fast", use_fp16=False)
+    res_leg = hold("legacy_fast_f32", drive(
+        "legacy f32 fast", lambda: [f32_leg.process_document(im)
+                                    for im in imgs], ("stem_fused_f32",)),
+        "legacy f32 fast")
+    assert all(r["det_confidence"] == 1.0 for rs in res_leg for r in rs)
+    f32_words = ocr(decode_method="fast", use_fp16=False)
+    res_words = hold("words_fast_f32", drive(
+        "words f32 fast", lambda: [f32_words.process_document(im,
+                                                             mode="words")
+                                   for im in imgs], ("stem_fused_f32",)),
+        "words f32 fast")
+    pooled = drive("legacy f32 fast process_documents",
+                   lambda: f32_leg.process_documents(imgs),
+                   ("stem_fused_f32",))
+    n, same, worst, diff = _stored_agree(pooled, res_leg)
+    check(n == sum(map(len, res_leg)) and not diff and worst <= TOL_CONF_F32,
+          f"legacy f32 fast: process_documents over {len(imgs)} pages gives "
+          f"the per-page results on {same}/{n} lines")
+    # recognize_crops takes a page's crops in one batch, as kiri_tpu's
+    # does: the pages of at most WORDS_DEVICE_MAX words.
+    few = [i for i, w in enumerate(res_words) if len(w) <= WORDS_DEVICE_MAX]
+    dev = ocr(decode_method="fast", use_fp16=False, preprocess="device")
+    res_dev = drive("words f32 fast preprocess=device", lambda: [
+        dev.process_document(imgs[i], mode="words") for i in few],
+        ("stem_fused_f32", "preprocess_lines"))
+    host = [res_words[i] for i in few]
+    n, same, worst, _ = _stored_agree(res_dev, host)
+    check(n == sum(map(len, host)),
+          f"words f32 fast preprocess=device on pages {few}: the {n} word "
+          f"boxes of the host run; {same}/{n} texts equal the "
+          f"host-preprocessed ones (the kernel resizes in float32), max "
+          f"|conf diff| {worst:.2e}")
+
+    gates = {"Khmer": CER_MAX, "English": CER_MAX}
+    scripts = {"Khmer": is_khmer, "English": lambda t: not is_khmer(t)}
+    bf16 = ocr(det_method="legacy", decode_method="fast", use_fp16=True)
+    res = drive("legacy bf16 fast", lambda: [bf16.process_document(im)
+                                             for im in imgs], ("stem_fused",))
+    ours = {k: score_pages(gt_pages, res, f) for k, f in scripts.items()}
+    ref = {k: score_pages(gt_pages, stored["legacy_fast_bf16"], f)
+           for k, f in scripts.items()}
+    limit = {k: max(gates[k], ref[k]["matched_cer"] + PAGE_CER_SLACK)
+             for k in scripts}
+    check(all(ours[k]["matched_cer"] <= limit[k] for k in scripts),
+          "legacy bf16 fast: line CER " + ", ".join(
+              f"{k} {ours[k]['matched_cer']:.4f} (max {limit[k]:.4f}; "
+              f"kiri_tpu {ref[k]['matched_cer']:.4f}), line recall "
+              f"{ours[k]['line_recall']:.4f}" for k in scripts))
+
+    # The command line as a user runs it, and the report.
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        page = Path(tmp) / "color_page.png"
+        imwrite_png(page, color)
+        out = Path(tmp) / "out"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kiri_tpu_torch.cli", "predict", str(page),
+             "--no-render", "--mode", "words", "--det-method", "legacy",
+             "-o", str(out)], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        dt = time.perf_counter() - t0
+        cli_ok = proc.returncode == 0
+        if cli_ok:
+            cli_res = json.loads((out / "ocr_results.json").read_text())
+            cli_text = (out / "extracted_text.txt").read_text()
+            text, want = OCR(ckpt, det_method="legacy",
+                             device="cuda").extract_text(str(page),
+                                                         mode="words")
+            strip = [[{k: v for k, v in r.items() if k != "confidence"}
+                      for r in rs] for rs in (cli_res, want)]
+            worst = max((abs(a["confidence"] - b["confidence"])
+                         for a, b in zip(cli_res, want)), default=0.0)
+            cli_ok = strip[0] == strip[1] and cli_text == text \
+                and worst <= 1e-5
+        check(cli_ok, f"python -m kiri_tpu_torch.cli predict --no-render "
+              f"--mode words --det-method legacy on the colour page (a PNG "
+              f"the port wrote) in {dt:.1f} s: ocr_results.json and "
+              f"extracted_text.txt equal the in-process extract_text"
+              + ("" if proc.returncode == 0 else
+                 f"; exit {proc.returncode}: {proc.stderr[-2000:]}"))
+        report = Path(tmp) / "report.html"
+        DocumentRenderer().create_report(str(page), res_leg[12], str(report))
+        html = report.read_text()
+        b64 = html.split("data:image/png;base64,", 1)[1].split('"', 1)[0]
+        back = png_to_bgr(read_png(base64.b64decode(b64)))
+        check(np.array_equal(back, color) and f"{len(res_leg[12])} regions"
+              in html, f"create_report: the report's embedded PNG decodes "
+              f"to the page, {len(res_leg[12])} regions listed")
+
+    # pages/s and the device's busy share, bf16 "fast".
+    for name, kw, mode in (("legacy", dict(det_method="legacy"), "lines"),
+                           ("words", {}, "words")):
+        o = ocr(decode_method="fast", use_fp16=True, **kw)
+        o.process_documents(imgs[:2], mode=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.process_documents(imgs, mode=mode)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        h, dv = host_and_device_ms(
+            torch, lambda: o.process_documents(imgs[:1], mode=mode), reps=3)
+        print(f"pages {name} fast (bf16; {card}): process_documents of "
+              f"{len(imgs)} pages {len(imgs) / dt:.3f} pages/s "
+              f"({dt * 1e3 / len(imgs):.1f} ms a page); page 0 {h:.2f} ms "
+              f"host, device busy {dv:.2f} ms ({100 * dv / h:.1f}%)",
+              flush=True)
+
+
 def host_and_device_ms(torch, fn, reps: int = 5, match: str = ""):
     """(host ms a call, synchronized; the device's busy ms a call: the sum
     of device-side events under torch.profiler), after one warm-up call.
@@ -1381,6 +1636,8 @@ def main() -> int:
     pages_phase(torch, np, functools.partial(drive_run, counts, by_run), card)
     rotated_pages_phase(torch, np, functools.partial(drive_run, counts,
                                                      by_run), card)
+    legacy_pages_phase(torch, np, functools.partial(drive_run, counts,
+                                                    by_run), card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

@@ -1,10 +1,12 @@
 """kiri_tpu_torch: the PyTorch + CUDA port of kiri_tpu for NVIDIA Hopper.
 
-``OCR`` (``pipeline.py``) reads pages: DB detection (``detect/``, the net on
-the card and the geometry on the host, ``native/``), crops preprocessed on
-the host (``ops/preprocess.py``, cv2-free) or by the preprocess kernel, and
-``engine.RecognizerEngine`` in every decode method, whose encoder runs the
-hand-written stem kernels. The package imports neither ``jax`` nor
+``OCR`` (``pipeline.py``) reads pages: DB or CRAFT detection (``detect/``,
+the nets on the card and the geometry on the host, ``native/``) or the
+classic-CV detector's lines or words (``detect/legacy.py``, on the host),
+crops preprocessed on the host (``ops/preprocess.py``, cv2-free) or by the
+preprocess kernel, and ``engine.RecognizerEngine`` in every decode method,
+whose encoder runs the hand-written stem kernels; ``cli.py`` is its command
+line. The package imports neither ``jax`` nor
 ``kiri_tpu``; ``OCR`` is imported on first use, so ``import kiri_tpu_torch``
 works without CUDA.
 """

@@ -1,9 +1,13 @@
-"""Text-detection facade, DB and CRAFT routes (the port of
-``kiri_tpu/detect/__init__.py``).
+"""Text-detection facade (the port of ``kiri_tpu/detect/__init__.py``).
 
 ``TextDetector(method="db" | "craft")`` turns the detector's quads into
 ``TextBox`` rows in reading order (CRAFT's merged where they overlap
-vertically) and splits boxes that bridge a column gutter. With
+vertically) and splits boxes that bridge a column gutter;
+``TextDetector("legacy")`` takes the lines of the classic-CV detector
+(``detect/legacy.py``, no model) as they are. Whatever the method, the word,
+block and character levels, ``detect_all`` and the debug images come from
+the classic-CV detector, as in the JAX package (``detect_blocks`` groups the
+method's own lines). With
 ``deskew=True`` a page whose estimated skew reaches ``deskew_min_angle``
 is straightened first (``detect/deskew.py``), detected upright, and its
 boxes are mapped back to the input frame; the upright page and its boxes
@@ -11,14 +15,13 @@ stay on the detector for the croppers (``last_deskewed_image``,
 ``last_deskew_boxes``, ``last_deskew_angle``; ``last_batch_state`` per page
 of a batch).
 
-Unlike the JAX package it never falls back to another detector: a detector
-that fails to load or to run raises. The classic-CV detector and the word,
-block and character levels are not ported yet (ROADMAP queue 1).
+Unlike the JAX package it never falls back to another detector: a DB or
+CRAFT detector that fails to load or to run raises.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +31,7 @@ from .base import DetectionLevel, TextBox
 from .craft import CRAFTDetector
 from .db import DBDetector
 from .deskew import boxes_to_original, estimate_skew, rotate_image
+from .legacy import ImageProcessingTextDetector
 
 _DB_KEYS = ("det_db_thresh", "det_db_box_thresh", "det_db_unclip_ratio",
             "max_side_len", "min_size", "binary_threshold",
@@ -35,15 +39,13 @@ _DB_KEYS = ("det_db_thresh", "det_db_box_thresh", "det_db_unclip_ratio",
             "padding_pct", "padding_px", "padding_y_pct", "padding_y_px",
             "line_tolerance_ratio", "debug", "det_map_downsample")
 _MODEL_FILES = {"db": "detector.safetensors", "craft": "craft.safetensors"}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
+METHODS = ("db", "craft", "legacy")
 
 
 class TextDetector:
-    """Detector facade over the DB or the CRAFT backend. ``device`` (None
-    means the card) goes to the net."""
+    """Detector facade over the DB, CRAFT or classic-CV backend. ``device``
+    (None means the card) goes to the net; the classic-CV detector runs on
+    the host and takes the remaining keyword arguments."""
 
     def __init__(self, method: str = "db", model_path: Optional[str] = None,
                  device=None, **kwargs):
@@ -62,18 +64,21 @@ class TextDetector:
         self.last_deskewed_image = None
         self.last_deskew_boxes = None
         self.last_deskew_angle = 0.0
-        if method not in _MODEL_FILES:
-            raise _not_ported(f"method={method!r}", "ROADMAP queue 1: the "
-                              "classic-CV detector")
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}: {method!r}")
         self.method = method
         self.kwargs = kwargs
+        self.db_detector = self.craft_detector = None
+        self.legacy_detector = ImageProcessingTextDetector(**kwargs)
+        self.model_path = model_path
+        if method == "legacy":
+            return
         if model_path is None:
             model_path = self._find_default_model()
         if not (model_path and Path(model_path).exists()):
             raise FileNotFoundError(
                 f"{method.upper()} model not found: {model_path}")
         self.model_path = str(model_path)
-        self.db_detector = self.craft_detector = None
         if method == "db":
             self.db_detector = DBDetector(
                 self.model_path, device=device,
@@ -152,6 +157,11 @@ class TextDetector:
         return self.craft_detector.iter_detect_text, dict(merge=True)
 
     def _detect_lines_upright(self, image) -> List[TextBox]:
+        if self.method == "legacy":
+            lines = self.legacy_detector.detect_lines(image)
+            return [TextBox(x, y, w, h, confidence=1.0,
+                            level=DetectionLevel.LINE)
+                    for (x, y, w, h) in lines]
         if self.method == "db":
             detected = self.db_detector.detect_text(image)
         else:
@@ -174,6 +184,14 @@ class TextDetector:
         self.last_deskewed_image = None
         self.last_deskew_boxes = None
         self.last_deskew_angle = 0.0
+        if self.method == "legacy":
+            # No net to batch: page by page, in input order.
+            for i, image in enumerate(images):
+                boxes = self.detect_lines_objects(image)
+                state[i] = (self.last_deskewed_image, self.last_deskew_boxes,
+                            self.last_deskew_angle)
+                yield i, boxes
+            return
         backend_iter, post_kwargs = self._backend()
         # (upright page or the input, applied angle, estimate or None,
         #  input shape)
@@ -373,14 +391,48 @@ class TextDetector:
         return merged
 
     # ------------------------------------------------------- other levels
-    def detect_words(self, image):
-        raise _not_ported("detect_words", "ROADMAP queue 1: the classic-CV "
-                          "detector")
+    def detect_words(self, image) -> List[Tuple[int, int, int, int]]:
+        # Words never deskew: a previous page's deskewed frame must not be
+        # taken for this call's by the croppers.
+        self.last_deskewed_image = None
+        self.last_deskew_boxes = None
+        self.last_deskew_angle = 0.0
+        return self.legacy_detector.detect_words(image)
 
-    def detect_blocks(self, image):
-        raise _not_ported("detect_blocks", "ROADMAP queue 1: the classic-CV "
-                          "detector")
+    def detect_blocks(self, image) -> List[Tuple[int, int, int, int]]:
+        """Blocks of the method's lines (the classic-CV detector's own
+        blocks for ``"legacy"``)."""
+        if self.method == "legacy":
+            return self.legacy_detector.detect_blocks(image)
+        lines = [TextBox(x, y, w, h, level=DetectionLevel.LINE)
+                 for (x, y, w, h) in self.detect_lines(image)]
+        img = self._load_image(image)
+        if img is None:
+            return []
+        h, w = img.shape[:2]
+        return [b.bbox for b in
+                self.legacy_detector._group_lines_into_blocks(lines, w, h)]
 
-    def detect_characters(self, image):
-        raise _not_ported("detect_characters", "ROADMAP queue 1: the "
-                          "classic-CV detector")
+    def detect_characters(self, image) -> List[Tuple[int, int, int, int]]:
+        return self.legacy_detector.detect_characters(image)
+
+    def detect_all(self, image) -> List[TextBox]:
+        return self.legacy_detector.detect_all(image)
+
+    def is_multiline(self, image, threshold: int = 2) -> bool:
+        return len(self.detect_lines(image)) >= threshold
+
+    def get_debug_images(self) -> Dict[str, np.ndarray]:
+        return self.legacy_detector.get_debug_images()
+
+
+def detect_text_lines(image, **kwargs):
+    return TextDetector(**kwargs).detect_lines(image)
+
+
+def detect_text_words(image, **kwargs):
+    return TextDetector(**kwargs).detect_words(image)
+
+
+def detect_text_blocks(image, **kwargs):
+    return TextDetector(**kwargs).detect_blocks(image)

@@ -1,8 +1,9 @@
 """ctypes binding of the detector's host geometry (``geometry.cpp``, a copy
-of ``kiri_tpu/native/geometry.cpp``).
+of ``kiri_tpu/native/geometry.cpp``); ``native/cvops.py`` binds the
+classic-CV detector's pixel operations (``cvops.cpp``) the same way.
 
-The library is compiled with ``g++ -O3`` the first time it is needed, into
-``build/kiri_tpu_torch/libkiri_geom_<hash>.so`` at the root of the checkout
+Each library is compiled with ``g++ -O3`` the first time it is needed, into
+``build/kiri_tpu_torch/lib<name>_<hash>.so`` at the root of the checkout
 (the hash covers the source and the flags). There is no fallback: a failed
 build raises with the compiler's output, because the numpy stand-ins of the
 JAX package (an axis-aligned ``min_area_rect`` among them) give other boxes.
@@ -45,24 +46,41 @@ _SIGNATURES = {
 }
 
 
+def built_path(src: Path, stem: str, flags) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
+
+
 def lib_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(FLAGS).encode())
-    return BUILD_DIR / f"libkiri_geom_{digest.hexdigest()[:16]}.so"
+    return built_path(SRC, "kiri_geom", FLAGS)
 
 
-def _build(out: Path) -> None:
+def _build(src: Path, out: Path, flags) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the detector's geometry library "
-                           f"({SRC}) is compiled at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        raise RuntimeError(f"g++ not found: the host library {src} is "
+                           "compiled at first use")
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *FLAGS, "-o", str(tmp), str(SRC)],
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SRC.name}:\n{proc.stdout}"
+        raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}"
                            f"{proc.stderr}")
     os.replace(tmp, out)
+
+
+def load_library(src: Path, stem: str, flags, signatures) -> ctypes.CDLL:
+    """``src`` built (if its hashed library is not there yet) and loaded,
+    with the ctypes ``signatures``; raises if it cannot be built."""
+    out = built_path(src, stem, flags)
+    if not out.exists():
+        _build(src, out, flags)
+    lib = ctypes.CDLL(str(out))
+    for name, (res, args) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
 
 
 def get_lib() -> ctypes.CDLL:
@@ -70,14 +88,7 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            out = lib_path()
-            if not out.exists():
-                _build(out)
-            lib = ctypes.CDLL(str(out))
-            for name, (res, args) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = res, args
-            _lib = lib
+            _lib = load_library(SRC, "kiri_geom", FLAGS, _SIGNATURES)
         return _lib
 
 

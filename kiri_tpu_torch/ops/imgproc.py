@@ -201,12 +201,16 @@ def _resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
 
 def resize_u8(img: np.ndarray, w: int, h: int, interp: str = "linear"
               ) -> np.ndarray:
-    """u8 [H, W] -> u8 [h, w], as ``cv2.resize(img, (w, h),
-    interpolation=INTER_LINEAR | INTER_CUBIC | INTER_AREA)`` computes it
-    ("area" only for downscales in both directions)."""
+    """u8 [H, W] or [H, W, C] -> u8 [h, w(, C)], as ``cv2.resize(img,
+    (w, h), interpolation=INTER_LINEAR | INTER_CUBIC | INTER_AREA)``
+    computes it ("area" only for downscales in both directions); OpenCV
+    resizes each channel alike."""
     if interp not in ("linear", "cubic", "area"):
         raise ValueError(f"interp must be linear, cubic or area: {interp!r}")
     img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 3:
+        return np.stack([resize_u8(img[..., c], w, h, interp)
+                         for c in range(img.shape[2])], -1)
     ih, iw = img.shape
     if (ih, iw) == (h, w):
         return img.copy()

@@ -1,24 +1,28 @@
-"""The OCR page pipeline: DB or CRAFT detection (with optional deskew) ->
-crops -> batched recognition -> text (the port of ``kiri_tpu/pipeline.py``).
+"""The OCR page pipeline: DB, CRAFT or classic-CV detection (with optional
+deskew) -> crops -> batched recognition -> text (the port of
+``kiri_tpu/pipeline.py``).
 
 ``OCR`` keeps the JAX package's constructor arguments and defaults, decode
 method aliases, result dicts and stream chunks key for key. ``device=None``
 means the card. What differs:
 
 - a detector that fails raises; nothing falls back to another detector or,
-  in ``process_documents``, to per-page detection;
+  in ``process_documents``, to per-page detection; an unknown
+  ``det_method`` raises ValueError (the JAX package runs the classic-CV
+  detector for it);
 - the class-level model cache is keyed on the compute dtype and the device
   too, so ``OCR(use_fp16=False)`` after ``OCR(use_fp16=True)`` on one
   checkpoint gets a float32 engine;
-- pages are u8 arrays; a path is read only where cv2 or PIL can be imported
+- a page is a u8 array or a path; PNG files are read by the port's own
+  reader, other formats only where cv2 or PIL can be imported
   (``utils/imageio.py``).
 
 On a page the detector deskewed, the crops are cut upright: with
 ``deskew_single_resample`` (the default) straight from the original page in
 one rotate-and-scale warp (``detect/deskew.extract_crop_single_resample``),
-otherwise from the rotated page. The classic-CV detector and word-level
-detection are not ported yet (ROADMAP queue 1): ``det_method="legacy"`` and
-``mode="words"`` raise.
+otherwise from the rotated page. ``mode="words"`` detects words with the
+classic-CV detector whatever ``det_method`` is (``det_confidence`` 1.0), and
+recognizes them as it does lines.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from .checkpoints import build_model, find_vocab_file, read_meta, \
 from .config import CFG
 from .device import resolve_device
 from .engine import RecognizerEngine
+from .detect import METHODS
 from .detect.deskew import extract_crop_single_resample, rotate_image
 from .ops.preprocess import (NOISE_SIGMA_THRESH, _despike, crop_region,
                              enhance_crop, estimate_noise_sigma,
@@ -90,10 +95,9 @@ class OCR:
                 DeprecationWarning, stacklevel=2)
             decode_method = "beam" if use_beam_search else "fast"
         decode_method = self._normalize_decode_method(decode_method)
-        if det_method not in ("db", "craft"):
-            raise NotImplementedError(
-                f"det_method={det_method!r} is not ported yet (ROADMAP queue "
-                f"1: the classic-CV detector)")
+        if det_method not in METHODS:
+            raise ValueError(f"det_method must be one of {METHODS}: "
+                             f"{det_method!r}")
 
         self.device = resolve_device(device)
         self.verbose = verbose

@@ -57,8 +57,9 @@ def load_smoke_pages() -> Dict:
     layout, condition, seed, lines from the short-text pool), ``det_quads`` / ``det_scores`` (the JAX
     package's ``DBDetector.detect_text``), ``boxes`` / ``box_conf`` (its
     ``TextDetector.detect_lines_objects``); with ``results`` ({run: one
-    result list per page}), ``prob_page`` and ``prob_u16``; and the rotated
-    pages and CRAFT answers of ``_rotated_and_craft``."""
+    result list per page}), ``prob_page`` and ``prob_u16``; the rotated
+    pages and CRAFT answers of ``_rotated_and_craft``; and the classic-CV
+    detector's answers of ``_add_legacy``."""
     with np.load(SMOKE_PAGES) as f:
         d = {k: f[k] for k in f.files}
     images = _split(d["pages_flat"], d["page_shapes"])
@@ -77,9 +78,11 @@ def load_smoke_pages() -> Dict:
                       "det_scores": scores,
                       "boxes": [tuple(map(int, b)) for b in boxes],
                       "box_conf": conf})
-    return {"pages": pages, "results": json.loads(str(d["results"])),
-            "prob_page": int(d["prob_page"]), "prob_u16": d["prob_u16"],
-            **_rotated_and_craft(d)}
+    out = {"pages": pages, "results": json.loads(str(d["results"])),
+           "prob_page": int(d["prob_page"]), "prob_u16": d["prob_u16"],
+           **_rotated_and_craft(d)}
+    _add_legacy(d, out)
+    return out
 
 
 def _boxes(rows: np.ndarray) -> List[tuple]:
@@ -128,3 +131,42 @@ def _rotated_and_craft(d: Dict[str, np.ndarray]) -> Dict:
                            for i in d["craft_map_pages"]},
             "craft_poly": (int(d["craft_poly_page"]), poly),
             "results_rot": json.loads(str(d["results_rot"]))}
+
+
+def _add_legacy(d: Dict[str, np.ndarray], out: Dict) -> None:
+    """``legacy``: ``color_page`` (u8 BGR) and, one list per page of the 13
+    (the 9 upright, the 3 rotated, the colour page), the JAX package's
+    classic-CV ``lines``, ``words``, ``blocks``, ``chars`` (boxes) and
+    ``all`` (``detect_all`` as ``[[x, y, w, h], level, children]``);
+    ``results_legacy`` ({run: one result list per page of the 13}); in each
+    rotated page's ``deskew["legacy"]`` the ``TextDetector("legacy",
+    deskew=True)`` answers; ``db_blocks``: ``detect_blocks`` over DB lines
+    of the 12 pages."""
+    if "legacy_lines" not in d:
+        return
+    leg = {"color_page": d["color_page"],
+           "all": json.loads(str(d["legacy_all"]))}
+    for level in ("lines", "words", "blocks", "chars"):
+        leg[level] = [_boxes(b) for b in _cut(
+            d[f"legacy_{level}"], d[f"legacy_{level}_counts"])]
+    out["legacy"] = leg
+    out["results_legacy"] = json.loads(str(d["results_legacy"]))
+    out["db_blocks"] = [_boxes(b) for b in _cut(d["db_blocks"],
+                                                 d["db_blocks_counts"])]
+    n = d["legacy_deskew_counts"]
+    for page, angle, boxes, twins in zip(
+            out["rot_pages"], d["legacy_deskew_angle"],
+            _cut(d["legacy_deskew_boxes"], n),
+            _cut(d["legacy_deskew_twins"], n)):
+        page["deskew"]["legacy"] = {"angle": float(angle),
+                                    "boxes": _boxes(boxes),
+                                    "twins": _boxes(twins)}
+
+
+def tint(gray: np.ndarray) -> np.ndarray:
+    """A fixed tint of a grey page, u8 BGR [H, W, 3]: ink to deep blue,
+    paper to cream (the fixture's colour page)."""
+    g = gray.astype(np.float64) / 255.0
+    ink = np.array([150.0, 40.0, 30.0])
+    paper = np.array([200.0, 245.0, 250.0])
+    return np.rint(ink + (paper - ink) * g[..., None]).astype(np.uint8)

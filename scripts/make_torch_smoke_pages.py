@@ -69,6 +69,30 @@ twelve pages (the nine above, then the three rotated):
   twelve pages]}`` for the runs of ``ROT_RUNS`` (pages a run skips have
   empty lists).
 
+The classic-CV detector (``kiri_tpu/detect/legacy.py``) over thirteen pages
+(the twelve above, then ``color_page``, page 0 tinted by
+``kiri_tpu_torch.smoke.tint`` so that the RGB, HSV and LAB candidates run):
+
+* ``color_page`` u8 [640, 640, 3] (BGR);
+* ``legacy_{lines,words,blocks,chars}`` [n, 4] with
+  ``legacy_{lines,words,blocks,chars}_counts`` [13]:
+  ``ImageProcessingTextDetector().detect_{lines,words,blocks,characters}``;
+  ``legacy_all``: a JSON string of each page's ``detect_all`` hierarchy
+  (``[[x, y, w, h], level, children]``);
+* ``legacy_deskew_angle`` [3], ``legacy_deskew_boxes`` / ``_twins`` /
+  ``_counts``: ``TextDetector("legacy", deskew=True)`` of the rotated
+  pages;
+* ``db_blocks`` / ``db_blocks_counts`` [12]: ``TextDetector("db")
+  .detect_blocks`` (blocks of the DB lines);
+* ``results_legacy``: a JSON string ``{run: [result dicts of each of the
+  thirteen pages]}`` for the runs of ``LEGACY_RUNS``.
+
+The JAX package's line grouping rescans every line for every component
+(85 s on the 1280 px page), so the script caches its ``_components`` and
+``_group_into_lines`` by input: the answers are those of its own calls.
+``python scripts/make_torch_smoke_pages.py --add`` computes only the arrays
+the committed file lacks (the pages are read from it) and keeps the rest.
+
 cv2 is run with IPP off (``cv2.ipp.setUseIPP(False)``): with IPP, cv2's
 cubic resize depends on the CPU's instruction set, and the port follows
 OpenCV's own code (``kiri_tpu_torch/ops/imgproc.py``). The arrays the file
@@ -113,6 +137,21 @@ CRAFT_MAP_PAGES = (3, 9)
 CRAFT_POLY_PAGE = 0
 ALL = range(12)
 ROT = range(9, 12)
+#: The page tinted into ``color_page``.
+COLOR_FROM = 0
+#: (run, OCR arguments, process_document mode) of ``results_legacy``.
+LEGACY_RUNS = (
+    ("legacy_fast_f32", dict(det_method="legacy", decode_method="fast",
+                             use_fp16=False), "lines"),
+    ("legacy_fast_bf16", dict(det_method="legacy", decode_method="fast",
+                              use_fp16=True), "lines"),
+    ("words_fast_f32", dict(decode_method="fast", use_fp16=False), "words"))
+LEGACY_KEYS = ("color_page", "legacy_lines", "legacy_lines_counts",
+               "legacy_words", "legacy_words_counts", "legacy_blocks",
+               "legacy_blocks_counts", "legacy_chars", "legacy_chars_counts",
+               "legacy_all", "legacy_deskew_angle", "legacy_deskew_boxes",
+               "legacy_deskew_twins", "legacy_deskew_counts", "db_blocks",
+               "db_blocks_counts", "results_legacy")
 #: (run, OCR arguments, pages) of ``results_rot``.
 ROT_RUNS = tuple(
     [(f"db_deskew_{m}_{t}", dict(decode_method=m, use_fp16=t == "bf16",
@@ -272,12 +311,129 @@ def craft_and_deskew(pages, rot_docs, rot_uprights, rot_specs, ckpt,
     return out
 
 
+def _cache_legacy_stages(cls) -> None:
+    """Memoise the classic-CV detector's two costly stages by their input
+    (and the detector's settings)."""
+    import hashlib
+
+    cache = {}
+    components, group = cls._components, cls._group_into_lines
+
+    def key(self, tag, *arrays):
+        h = hashlib.sha256(repr(sorted(
+            (k, v) for k, v in vars(self).items() if k != "_debug")).encode())
+        for a in arrays:
+            if a is not None:
+                a = np.ascontiguousarray(a)
+                h.update(repr((a.shape, a.dtype.str)).encode() + a.tobytes())
+        return tag, h.hexdigest()
+
+    def cached_components(self, gray, color=None):
+        k = key(self, "c", gray, color)
+        if k not in cache:
+            cache[k] = components(self, gray, color)
+        return cache[k].copy()
+
+    def cached_group(self, comps):
+        k = key(self, "g", comps)
+        if k not in cache:
+            cache[k] = group(self, comps)
+        return list(cache[k])
+
+    cls._components = cached_components
+    cls._group_into_lines = cached_group
+
+
+def _tree(boxes):
+    return [[list(b.bbox), b.level.value, _tree(b.children)] for b in boxes]
+
+
+def _flat(per_page, name):
+    return {name: np.asarray([b for bs in per_page for b in bs],
+                             np.int32).reshape(-1, 4),
+            f"{name}_counts": np.asarray(list(map(len, per_page)), np.int32)}
+
+
+def legacy_answers(pages, rot, ckpt, det_path):
+    """The classic-CV detector's arrays and ``results_legacy``."""
+    from kiri_tpu.detect import TextDetector
+    from kiri_tpu.detect.legacy import ImageProcessingTextDetector
+    from kiri_tpu.pipeline import OCR
+    from kiri_tpu_torch.smoke import tint
+
+    _cache_legacy_stages(ImageProcessingTextDetector)
+    color = tint(pages[COLOR_FROM])
+    every = list(pages) + list(rot) + [color]
+    det = ImageProcessingTextDetector()
+    out = {"color_page": color}
+    for name, fn in (("legacy_lines", det.detect_lines),
+                     ("legacy_words", det.detect_words),
+                     ("legacy_blocks", det.detect_blocks),
+                     ("legacy_chars", det.detect_characters)):
+        t0 = time.perf_counter()
+        out.update(_flat([fn(p) for p in every], name))
+        print(f"{name}: {out[name + '_counts'].tolist()} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["legacy_all"] = np.asarray(json.dumps(
+        [_tree(det.detect_all(p)) for p in every]))
+    desk = TextDetector("legacy", deskew=True)
+    boxes, twins, angles = [], [], []
+    for p in rot:
+        boxes.append([b.bbox for b in desk.detect_lines_objects(p)])
+        assert desk.last_deskew_angle, "legacy: deskew did not fire"
+        twins.append([b.bbox for b in desk.last_deskew_boxes])
+        angles.append(desk.last_deskew_angle)
+    out.update(_flat(boxes, "legacy_deskew_boxes"))
+    out["legacy_deskew_twins"] = _flat(twins, "t")["t"]
+    out["legacy_deskew_counts"] = out.pop("legacy_deskew_boxes_counts")
+    out["legacy_deskew_angle"] = np.asarray(angles, np.float64)
+    db = TextDetector("db", det_path)
+    assert db.method == "db", "kiri_tpu fell back to another detector"
+    out.update(_flat([db.detect_blocks(p) for p in list(pages) + list(rot)],
+                     "db_blocks"))
+    results = {}
+    for name, kw, mode in LEGACY_RUNS:
+        t0 = time.perf_counter()
+        OCR._model_cache.clear()
+        ocr = OCR(ckpt, det_model_path=det_path, **kw)
+        results[name] = [ocr.process_document(p, mode=mode) for p in every]
+        print(f"{name}: {sum(map(len, results[name]))} regions in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["results_legacy"] = np.asarray(json.dumps(results,
+                                                  ensure_ascii=False))
+    return out
+
+
+def add_missing() -> None:
+    """``--add``: the arrays of ``LEGACY_KEYS`` the committed file lacks,
+    from the committed pages."""
+    from kiri_tpu_torch.smoke import load_smoke_pages
+
+    with np.load(OUT) as f:
+        old = {k: f[k] for k in f.files}
+    if all(k in old for k in LEGACY_KEYS):
+        print("nothing to add")
+        return
+    sp = load_smoke_pages()
+    pages = [p["image"] for p in sp["pages"]]
+    rot = [p["image"] for p in sp["rot_pages"]]
+    models = REPO / "models"
+    new = legacy_answers(pages, rot, str(models / "model.safetensors"),
+                         str(models / "detector.safetensors"))
+    old.update({k: v for k, v in new.items() if k not in old})
+    np.savez_compressed(OUT, **old)
+    print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
+
+
 def main() -> None:
     import cv2
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     cv2.ipp.setUseIPP(False)
+    if "--add" in sys.argv[1:]:
+        add_missing()
+        return
     from kiri_tpu.detect import TextDetector
     from kiri_tpu.detect.db import DBDetector
     from kiri_tpu.ops.preprocess import invert_if_dark
@@ -348,6 +504,9 @@ def main() -> None:
                                 str(REPO / "models" / "craft.safetensors")))
     print(f"rotated pages, CRAFT and deskew: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out.update(legacy_answers(
+        pages, [np.ascontiguousarray(d["image"], np.uint8) for d in rot_docs],
+        ckpt, det_path))
 
     if OUT.exists():
         with np.load(OUT) as old:

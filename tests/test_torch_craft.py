@@ -193,7 +193,8 @@ def test_text_detector_craft_boxes(pages, fixture):
 
 def test_no_fallback_from_craft(pages, monkeypatch):
     """kiri_tpu falls back to its classic-CV detector when the CRAFT model
-    is missing or CRAFT detection raises; the port raises."""
+    is missing or CRAFT detection raises; the port raises (also for blocks,
+    which group CRAFT's lines)."""
     assert JTextDetector("craft", "missing.safetensors").method == "legacy"
     with pytest.raises(FileNotFoundError):
         TextDetector("craft", "missing.safetensors", device="cpu")
@@ -210,6 +211,10 @@ def test_no_fallback_from_craft(pages, monkeypatch):
     monkeypatch.setattr(ttd.craft_detector, "iter_detect_text", broken)
     with pytest.raises(RuntimeError, match="detector failed"):
         ttd.detect_lines_objects_batch(pages[:2])
-    for fn in (ttd.detect_words, ttd.detect_blocks, ttd.detect_characters):
-        with pytest.raises(NotImplementedError):
-            fn(pages[0])
+    # The word and character levels are the classic-CV detector's; blocks
+    # group CRAFT's own lines, so they raise with it.
+    jtd = JTextDetector("craft", CRAFT)
+    assert ttd.detect_words(pages[0]) == jtd.detect_words(pages[0])
+    assert ttd.detect_characters(pages[0]) == jtd.detect_characters(pages[0])
+    with pytest.raises(RuntimeError, match="detector failed"):
+        ttd.detect_blocks(pages[0])

@@ -14,7 +14,9 @@ two-column page with a box that ``_split_column_merges`` splits).
 - ``TextDetector.detect_lines_objects`` / ``iter_lines_objects_batch``:
   identical ``TextBox``es, pages yielded in kiri_tpu's order;
 - where kiri_tpu falls back to its classic-CV detector, the port raises
-  (the CRAFT route's own cases are in tests/test_torch_craft.py).
+  (the CRAFT route's own cases are in tests/test_torch_craft.py); the
+  classic-CV levels themselves read as kiri_tpu's (and in full in
+  tests/test_torch_legacy.py).
 
 cv2 runs with IPP off (see tests/test_torch_imgproc.py)."""
 from __future__ import annotations
@@ -206,14 +208,15 @@ def test_no_fallback_to_another_detector(pages, monkeypatch):
         TextDetector("db", "missing.safetensors", device="cpu")
     with pytest.raises(FileNotFoundError):
         TextDetector("craft", "missing.safetensors", device="cpu")
-    with pytest.raises(NotImplementedError, match="classic-CV"):
-        TextDetector("legacy", device="cpu")
+    assert (TextDetector("legacy", device="cpu").detect_lines(pages[0])
+            == JTextDetector("legacy").detect_lines(pages[0]))
     with pytest.raises(NotImplementedError, match=r"\.onnx|ONNX"):
         DBDetector("detector.onnx", device="cpu")
     ttd = TextDetector("db", DET, device="cpu")
-    for fn in (ttd.detect_words, ttd.detect_blocks, ttd.detect_characters):
-        with pytest.raises(NotImplementedError):
-            fn(pages[0])
+    jtd = JTextDetector("db", DET)
+    for name in ("detect_words", "detect_blocks", "detect_characters"):
+        assert (getattr(ttd, name)(pages[0])
+                == getattr(jtd, name)(pages[0])), name
 
     def broken(*a, **k):
         raise RuntimeError("detector failed")

@@ -80,11 +80,15 @@ def test_decode_method_surface(small_ckpt):
     t = OCR(small_ckpt, device="cpu")
     assert (t.stream_window, t._stream_window_for("beam"),
             t._stream_window_for("decoder")) == (16, 16, None)
-    with pytest.raises(NotImplementedError, match="classic-CV"):
-        OCR(small_ckpt, device="cpu", det_method="legacy")
+    with pytest.raises(ValueError, match="det_method"):
+        OCR(small_ckpt, device="cpu", det_method="east")
+    blank = np.full((64, 64), 255, np.uint8)
+    t = OCR(small_ckpt, device="cpu", det_method="legacy")
+    assert t.detector.method == "legacy"
+    assert t.process_document(blank) == JOCR(
+        small_ckpt, det_method="legacy").process_document(blank) == []
     t = OCR(small_ckpt, det_model_path=DET, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.process_document(np.full((64, 64), 255, np.uint8), mode="words")
+    assert t.process_document(blank, mode="words") == []
 
 
 def test_model_cache_is_keyed_on_the_dtype():
@@ -108,18 +112,23 @@ def test_model_cache_is_keyed_on_the_dtype():
 
 def test_page_paths_need_an_image_reader(small_ckpt, smoke_pages, tmp_path,
                                          monkeypatch):
-    """A path is read through cv2 (or PIL) where one imports, giving the
-    array's results; where neither does, the error says so."""
+    """A path gives the array's results. PNG is read by the port itself,
+    also where neither cv2 nor PIL imports; any other file is read through
+    cv2 (or PIL), and where neither imports the error says so."""
     import cv2
 
     from kiri_tpu_torch.utils import imageio
 
     page = smoke_pages["pages"][0]["image"]
     path = tmp_path / "page.png"
+    other = tmp_path / "page.bmp"
     cv2.imwrite(str(path), page)
+    cv2.imwrite(str(other), page)
     t = OCR(small_ckpt, det_model_path=DET, decode_method="fast",
             device="cpu")
-    assert t.process_document(str(path)) == t.process_document(page)
+    want = t.process_document(page)
+    assert t.process_document(str(path)) == want
+    assert t.process_document(str(other)) == want
     with pytest.raises(ValueError, match="Could not load image"):
         t._load_gray(str(tmp_path / "missing.png"))
 
@@ -127,5 +136,6 @@ def test_page_paths_need_an_image_reader(small_ckpt, smoke_pages, tmp_path,
         raise ImportError(name)
 
     monkeypatch.setattr(imageio.importlib, "import_module", no_reader)
+    assert t.process_document(str(path)) == want
     with pytest.raises(RuntimeError, match="needs cv2 or PIL"):
-        t.process_document(str(path))
+        t.process_document(str(other))
