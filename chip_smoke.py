@@ -85,7 +85,31 @@
    the in-process ``extract_text``; ``create_report``'s embedded PNG. Then
    the detector's host ms by stage, pages/s of ``process_documents`` for
    legacy lines and for words, and the device's busy share of a page;
-8. prints one throughput line per method, one line per streamed method with
+8. the training phase (each run with the counters at 0), from the committed
+   checkpoints and ``kiri_tpu_torch/assets/smoke_train.npz``: (a) the
+   recognizer's float32 step 0 on 32 smoke lines (DROPOUT 0): its loss,
+   CTC and CE losses within 1e-4 relative (gradient norm 1e-3) of
+   kiri_tpu's stored float64 run of the same step, and the port's float64
+   step within 1e-9 of it (kiri_tpu's stored float32 numbers lie ~1.5e-4
+   from its own float64 run: float32 sums on the CPU, on a loss of 0.009;
+   the port's distance to them is printed); the phase runs under
+   PyTorch's default TF32 flags, so the trainers' own float32 scope is what
+   keeps TF32 out; (b) ``train_loop`` in bf16 with dropout
+   0.15 warm-started from the checkpoint, 30 steps at batch 64 over the 64
+   lines: every loss finite, the last five steps' mean below the first
+   five's; (c) its saved checkpoint through
+   ``RecognizerEngine.from_checkpoint`` reads the lines within the CER
+   gates ("ctc" 0.02, "decoder" 0.03); (d) 10 decoder-only steps leave the
+   CTC logits bit-identical; (e) a float32 run resumed from its epoch-1
+   checkpoint ends where the uninterrupted run ends; (f) ``train_db`` and
+   ``train_craft``, 20 steps each warm-started from the committed detectors
+   on the fixture's four documents laid out as a ``generate-detector``
+   directory: float32 step 0 equal to kiri_tpu's stored loss within 1e-4
+   relative, the loss falling, the saved file detecting on a fixture page.
+   It prints the trainer's steps/s and lines/s, host ms of ``collate`` and
+   of the step, the device's busy share of a step, peak memory, and the
+   detector trainers' steps/s;
+9. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -137,6 +161,17 @@ PAGE_CER_SLACK = 0.005    # bf16 page line CER above kiri_tpu's own
 CRAFT_MAP_STEPS = 2       # float16 steps of a CRAFT map value
 STREAM_WINDOWS_TIMED = (1, 4, 8, 16, 32)
 WORDS_DEVICE_MAX = 200    # words of a page for the device-preprocess run
+TOL_TRAIN_STEP0 = 1e-4    # float32 step-0 losses against kiri_tpu's, relative
+TOL_TRAIN_GRAD_NORM = 1e-3
+# float64 step-0 numbers against kiri_tpu's float64 run: ~1e-13 apart on the
+# CPU; float32 effects are 1e-5 and more.
+TOL_TRAIN_F64 = 1e-9
+TOL_TRAIN_RESUME = 1e-5   # resumed against uninterrupted weights, of scale
+TRAIN_LR = 5e-5           # warm-started fine-tunes of the smoke phase
+TRAIN_BATCH = 64
+TRAIN_REPEAT = 6          # the 64 lines six times: 6 steps an epoch
+TRAIN_EPOCHS = 5
+DET_STEPS = 20
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
 
@@ -1545,6 +1580,278 @@ def legacy_pages_phase(torch, np, drive, card):
               flush=True)
 
 
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _falls(losses) -> bool:
+    return bool(sum(losses[-5:]) / 5 < sum(losses[:5]) / 5)
+
+
+def training_phase(torch, np, drive, card):
+    """The trainers on the card against kiri_tpu's stored step-0 numbers,
+    each run with the launch counters at 0 (see the module's docstring,
+    item 8)."""
+    import shutil
+
+    from kiri_tpu_torch.checkpoints import find_vocab_file, load_checkpoint
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.detect.craft import load_craft_checkpoint
+    from kiri_tpu_torch.detect.craft.net import build_craft_net
+    from kiri_tpu_torch.detect.craft.train import CRAFTTrainConfig, train_craft
+    from kiri_tpu_torch.detect.db import load_db_checkpoint
+    from kiri_tpu_torch.detect.db.net import build_db_net
+    from kiri_tpu_torch.detect.db.train import DBTrainConfig, train_db
+    from kiri_tpu_torch.engine import RecognizerEngine
+    from kiri_tpu_torch.smoke import (load_smoke_lines, load_smoke_train,
+                                      write_detector_dataset)
+    from kiri_tpu_torch.tokenizer import CharTokenizer
+    from kiri_tpu_torch.train import trainer as T
+
+    ckpt = REPO / "models" / "model.safetensors"
+    d, _ = load_smoke_lines()
+    st = load_smoke_train()
+    imgs, widths = d["imgs"], d["widths"]
+    texts = [str(t) for t in d["texts"]]
+    is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
+    samples = [{"image": im, "text": t} for im, t in zip(imgs, texts)]
+    tmp = Path(tempfile.mkdtemp(prefix="kiri_train_"))
+    # PyTorch's default TF32 flags (cuDNN's on), not main()'s: the trainers
+    # keep TF32 out of their float32 steps themselves.
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    tf32 = [f.allow_tf32 for f in flags]
+    flags[0].allow_tf32, flags[1].allow_tf32 = True, False
+    try:
+        def fresh(**kw):
+            model, cfg, meta = load_checkpoint(ckpt, device="cuda")
+            cfg = cfg.replace(**kw)
+            vocab = find_vocab_file(meta.get("vocab_path", ""), str(ckpt))
+            return model, cfg, CharTokenizer(vocab, cfg), vocab
+
+        # (a) float32 step 0, and the same step in float64 (the train
+        # forward is generic in its dtype), against kiri_tpu's float64 run
+        # of it; kiri_tpu's float32 numbers are printed beside.
+        model, cfg32, tok, vocab = fresh(COMPUTE_DTYPE="float32", DROPOUT=0.0)
+        batch32 = T.collate([samples[i] for i in st["rec_idx"]], tok, 512,
+                            img_hw=(cfg32.IMG_H, cfg32.IMG_W))
+        tr = T.Trainer(cfg32, tok, T.TrainConfig(), model=model,
+                       device="cuda")
+        model64, _, _, _ = fresh()
+        tr64 = T.Trainer(cfg32, tok, T.TrainConfig(), model=model64.double(),
+                         device="cuda")
+        tr64.dtype = torch.float64
+        m, m64 = drive("train f32 and f64 step 0", lambda: [
+            tr.run_step(batch32), tr64.run_step(batch32)], ())
+        keys = ("loss", "ctc_loss", "dec_loss", "grad_norm")
+        ref = {k: float(st[f"rec_step0_f64_{k}"]) for k in keys}
+        ref32 = {k: float(st[f"rec_step0_{k}"]) for k in keys}
+        e32 = {k: _rel(m[k], ref[k]) for k in keys}
+        e64 = {k: _rel(m64[k], ref[k]) for k in keys}
+        check(all(v <= (TOL_TRAIN_GRAD_NORM if k == "grad_norm"
+                        else TOL_TRAIN_STEP0) for k, v in e32.items())
+              and max(e64.values()) <= TOL_TRAIN_F64,
+              f"train step 0 ({len(batch32['image'])} lines, width "
+              f"{cfg32.IMG_W}) against kiri_tpu's float64 run: " + "; ".join(
+                  f"{k} {ref[k]!r}: f32 {m[k]!r} (rel {e32[k]:.1e}), f64 "
+                  f"{m64[k]!r} (rel {e64[k]:.1e}); kiri_tpu f32 "
+                  f"{ref32[k]!r} (the port's f32 rel {_rel(m[k], ref32[k]):.1e})"
+                  for k in keys)
+              + f"; tol f32 {TOL_TRAIN_STEP0:g} (grad_norm "
+              f"{TOL_TRAIN_GRAD_NORM:g}), f64 {TOL_TRAIN_F64:g}")
+        del tr, model, tr64, model64
+
+        # (b) train_loop, bf16, dropout 0.15, warm start; every step recorded.
+        _, cfg, tok, vocab = fresh()
+        steps, step_ms = [], []
+        run_step = T.Trainer.run_step
+
+        def recorded(self, batch):
+            t0 = time.perf_counter()
+            out = run_step(self, batch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(out)
+            return out
+
+        tc = T.TrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                           lr=TRAIN_LR, out_dir=str(tmp / "rec"), seed=0,
+                           log_every=0)
+        torch.cuda.reset_peak_memory_stats()
+        T.Trainer.run_step = recorded
+        try:
+            trainer = drive("train bf16 train_loop", lambda: [T.train_loop(
+                cfg, tok, tc, samples * TRAIN_REPEAT, samples,
+                vocab_path=vocab, from_model=str(ckpt), verbose=False,
+                device="cuda")], ("stem_fused",))[0]
+        finally:
+            T.Trainer.run_step = run_step
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [s["loss"] for s in steps]
+        hist = trainer.history
+        check(len(losses) == TRAIN_EPOCHS * TRAIN_REPEAT
+              and all(np.isfinite(losses)) and _falls(losses),
+              f"train bf16 train_loop: {len(losses)} steps, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five mean "
+              f"{sum(losses[:5]) / 5:.4f}, last five {sum(losses[-5:]) / 5:.4f})"
+              f"; val CTC exact {hist[-1].get('val_ctc_acc', 0):.3f}, AR "
+              f"{hist[-1].get('val_ar_acc', 0):.3f}; files "
+              f"{sorted(p.name for p in (tmp / 'rec').iterdir())[:4]}...")
+        chunk = (samples * TRAIN_REPEAT)[:TRAIN_BATCH]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            batch64 = T.collate(chunk, tok, tc.max_seq_len,
+                                img_hw=(cfg.IMG_H, cfg.IMG_W))
+        collate_ms = (time.perf_counter() - t0) * 1e2
+        host, busy = host_and_device_ms(
+            torch, lambda: trainer.run_step(batch64), reps=5)
+        steady = float(np.median(step_ms[2:]))
+        print(f"train recognizer (bf16, batch {TRAIN_BATCH}, 48x640, "
+              f"{card}): {1e3 / (steady + collate_ms):.2f} steps/s, "
+              f"{TRAIN_BATCH * 1e3 / (steady + collate_ms):.1f} lines/s; "
+              f"host ms a step: collate {collate_ms:.2f}, step {steady:.2f} "
+              f"(median of train_loop's steps 3-{len(step_ms)}); profiled "
+              f"step {host:.2f} ms host, device busy {busy:.2f} ms "
+              f"({100 * busy / host:.1f}%); peak memory {peak:.2f} GiB",
+              flush=True)
+        del trainer
+
+        # (c) the saved checkpoint through the engine, within the CER gates.
+        eng = RecognizerEngine.from_checkpoint(
+            str(tmp / "rec" / "latest.safetensors"), device="cuda")
+        for method, cer_max in (("ctc", CER_MAX), ("decoder",
+                                                   CER_MAX_DECODER)):
+            res = drive(f"train: saved checkpoint {method}",
+                        lambda: eng.recognize_batch(imgs, method, widths),
+                        ("stem_fused",))
+            hyp = [t for t, _ in res]
+            kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
+            en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if not k])
+            check(kh <= cer_max and en <= cer_max,
+                  f"train: the saved checkpoint reads the smoke lines "
+                  f"({method}, bf16) at Khmer CER {kh:.4f}, English CER "
+                  f"{en:.4f} (max {cer_max})")
+        del eng
+
+        # (d) decoder-only steps leave the CTC head's logits bit-identical.
+        model, cfg, tok, _ = fresh()
+        tr = T.Trainer(cfg, tok, T.TrainConfig(train_only="decoder",
+                                               lr=TRAIN_LR, seed=0),
+                       model=model, total_steps=10, device="cuda")
+        x = torch.from_numpy(imgs).cuda()
+        dec_w = model.dec_head.weight.detach().clone()
+
+        def ctc_logits():
+            with torch.no_grad():
+                return model.ctc_logits(model.encode(x, tr.dtype))
+
+        def decoder_steps():
+            before = ctc_logits()
+            batch = T.collate(samples, tok, 512, img_hw=(cfg.IMG_H,
+                                                         cfg.IMG_W))
+            out = [tr.run_step(batch) for _ in range(10)]
+            return out, before, ctc_logits()
+
+        out, before, after = drive("train decoder-only", decoder_steps,
+                                   ("stem_fused",))
+        check(torch.equal(before, after)
+              and not torch.equal(dec_w, model.dec_head.weight),
+              f"train decoder-only: 10 steps (dec loss "
+              f"{out[0]['dec_loss']:.4f} -> {out[-1]['dec_loss']:.4f}) leave "
+              f"the CTC logits bit-identical, the decoder head moved")
+        del tr, model
+
+        # (e) a float32 run resumed at epoch 1 ends where the whole run ends.
+        _, cfg32, tok, vocab = fresh(COMPUTE_DTYPE="float32")
+
+        def run(name, resume):
+            tc = T.TrainConfig(epochs=2, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                               out_dir=str(tmp / name), seed=0, log_every=0)
+            return T.train_loop(cfg32, tok, tc, samples * 2, samples[:8],
+                                vocab_path=vocab, from_model=str(ckpt),
+                                verbose=False, resume=resume, device="cuda")
+
+        def resumed():
+            whole = run("whole", False)
+            (tmp / "cut").mkdir()
+            for suffix in (".safetensors", "_meta.json", "_optim_torch.npz"):
+                shutil.copy(tmp / "whole" / f"model_epoch_1{suffix}",
+                            tmp / "cut" / f"latest{suffix}")
+            return [whole, run("cut", True)]
+
+        whole, cut = drive("train f32 resume", resumed, ("stem_fused_f32",))
+        scale = max(float(p.detach().abs().max())
+                    for p in whole.model.parameters())
+        diff = max(float((p - q).abs().max()) for p, q in
+                   zip(whole.model.parameters(), cut.model.parameters()))
+        la, lb = whole.history[-1]["loss"], cut.history[-1]["loss"]
+        check(cut.step == whole.step > 0 and diff <= TOL_TRAIN_RESUME * scale
+              and _rel(lb, la) <= TOL_TRAIN_RESUME,
+              f"train f32 resume: resumed at epoch 1, step {cut.step} as the "
+              f"whole run's {whole.step}; max |weight diff| {diff:.2e} (scale "
+              f"{scale:.2f}, tol {TOL_TRAIN_RESUME:g} of it), epoch-2 loss "
+              f"{lb:.6f} vs {la:.6f}")
+        del whole, cut
+
+        # (f) the detector trainers on the fixture's documents.
+        root = write_detector_dataset(tmp / "det", st["det_images"],
+                                      st["det_annotations"])
+        page = st["det_images"][0]
+        for kind in ("db", "craft"):
+            hist = []
+            if kind == "db":
+                net = build_db_net(load_db_checkpoint(
+                    REPO / "models" / "detector.safetensors"))
+                tc = DBTrainConfig(steps=DET_STEPS, batch_size=4, lr=TRAIN_LR,
+                                   data_dir=root, out_dir=str(tmp / kind),
+                                   log_every=0)
+                saved = tmp / kind / "detector.safetensors"
+                fn, ref = train_db, "detector.safetensors"
+                parts = ("loss", "prob_loss", "bin_loss", "thresh_loss")
+            else:
+                net = build_craft_net(load_craft_checkpoint(
+                    REPO / "models" / "craft.safetensors"))
+                tc = CRAFTTrainConfig(steps=DET_STEPS, batch_size=4,
+                                      lr=TRAIN_LR, data_dir=root,
+                                      out_dir=str(tmp / kind), log_every=0)
+                saved = tmp / kind / "last.safetensors"
+                fn, ref = train_craft, "craft.safetensors"
+                parts = ("loss",)
+            drive(f"train {kind}", lambda: [fn(tc, verbose=False, net=net,
+                                               device="cuda", history=hist)],
+                  ())
+            losses = [h["loss"] for h in hist]
+            errs = {k: _rel(hist[0][k], float(st[f"{kind}_step0_{k}"]))
+                    for k in parts}
+            n_new = len(TextDetector(kind, str(saved),
+                                     device="cuda").detect_lines(page))
+            n_ref = len(TextDetector(kind, str(REPO / "models" / ref),
+                                     device="cuda").detect_lines(page))
+            check(max(errs.values()) <= TOL_TRAIN_STEP0
+                  and all(np.isfinite(losses)) and _falls(losses)
+                  and n_new >= max(1, n_ref // 2),
+                  f"train {kind}: f32 step 0 " + ", ".join(
+                      f"{k} {hist[0][k]:.6f} vs kiri_tpu "
+                      f"{float(st[f'{kind}_step0_{k}']):.6f} (rel "
+                      f"{errs[k]:.1e})" for k in parts)
+                  + f"; loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
+                  f"{len(losses)} steps; the saved file finds {n_new} lines "
+                  f"on a fixture page ({n_ref} with {ref})")
+            tc.out_dir = str(tmp / f"{kind}_timed")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(tc, verbose=False, net=net, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"train {kind} (f32, TF32 off, batch 4, "
+                  f"{page.shape[0]}x{page.shape[1]}, {card}): "
+                  f"{DET_STEPS / dt:.2f} steps/s over {DET_STEPS} steps "
+                  "(data load and one checkpoint write included)",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for f, on in zip(flags, tf32):
+            f.allow_tf32 = on
+
+
 def host_and_device_ms(torch, fn, reps: int = 5, match: str = ""):
     """(host ms a call, synchronized; the device's busy ms a call: the sum
     of device-side events under torch.profiler), after one warm-up call.
@@ -1638,6 +1945,8 @@ def main() -> int:
                                                      by_run), card)
     legacy_pages_phase(torch, np, functools.partial(drive_run, counts,
                                                     by_run), card)
+    training_phase(torch, np, functools.partial(drive_run, counts, by_run),
+                   card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

@@ -1,10 +1,11 @@
 """Checkpoint loading: torch-named ``.safetensors`` weights + ``_meta.json``
-(the load half of ``kiri_tpu/train/checkpoints.py``).
+(the load half of ``kiri_tpu/train/checkpoints.py``; training writes them
+with ``train/checkpoints.py``).
 
 The machine with the card has no ``safetensors`` package, so the file is
-read here with numpy: an 8-byte little-endian header length, a JSON header
-mapping each tensor name to its dtype, shape and byte range, then the raw
-little-endian bytes.
+read and written here with numpy: an 8-byte little-endian header length, a
+JSON header mapping each tensor name to its dtype, shape and byte range,
+then the raw little-endian bytes. Only F32 and I64 occur.
 """
 from __future__ import annotations
 
@@ -45,6 +46,38 @@ def read_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
         out[name] = np.frombuffer(data, dtype, count, start).reshape(
             info["shape"]).astype(dtype.newbyteorder("="))
     return out
+
+
+def write_safetensors(path: Union[str, Path],
+                      tensors: Dict[str, np.ndarray]) -> str:
+    """Write float32 and int64 arrays (numpy or torch) as ``path``, in name
+    order, readable by ``read_safetensors`` and by the ``safetensors``
+    package."""
+    kinds = {v: k for k, v in _DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        v = tensors[name]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        v = np.asarray(v)
+        if v.dtype not in kinds:
+            raise ValueError(f"{name}: dtype {v.dtype} is neither float32 "
+                             "nor int64")
+        raw = np.ascontiguousarray(v, v.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": kinds[v.dtype], "shape": list(v.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    return str(path)
 
 
 def build_model(sd: Dict[str, np.ndarray], cfg: CFG) -> Recognizer:

@@ -1,16 +1,25 @@
 """The command line of the port (``kiri-tpu-torch``, or ``python -m
 kiri_tpu_torch.cli``): the port of ``kiri_tpu/cli.py``.
 
-``predict`` takes every flag of the JAX package's (a bare image path means
-``predict``), ``--version`` and ``init-config`` too. What differs:
+``predict`` and ``train`` take every flag of the JAX package's (a bare
+image path means ``predict``), ``train-detector`` too (with ``--data-yaml``),
+and ``--version`` and ``init-config``. What differs:
 
 - ``--device`` is the card by default (``cuda``); ``cpu`` runs on the host;
   ``tpu`` is refused;
 - an error exits with status 1 (the JAX package prints it and exits 0);
 - unless ``--no-render`` is given, ``predict`` checks that Pillow imports
   (the result images draw glyphs with it) before any OCR work;
-- ``train``, ``generate``, ``generate-detector`` and ``train-detector``
-  are not ported yet: they exit with status 2 and name the ROADMAP item.
+- ``train --hf-dataset`` exits 1: HuggingFace datasets need the
+  ``datasets`` package and the network (ROADMAP.md, the tail);
+  ``train-detector`` without ``--data-yaml`` exits 1: the live document
+  generator draws text with PIL; its flags (``--image-size``,
+  ``--aug-weights`` ...) are accepted and ignored, as the JAX package
+  ignores them with ``--data-yaml``;
+- a config file is JSON, or the flat ``key: value`` YAML that
+  ``init-config`` writes, read without PyYAML;
+- ``generate`` and ``generate-detector`` are not ported yet (they render
+  text with PIL): they exit with status 2 and name the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,17 +54,28 @@ DEFAULT_TRAIN_CONFIG = {
     "dropout": 0.15,
 }
 
-#: Commands of the JAX package's CLI that wait for training (ROADMAP
-#: queue 1 item 5).
+#: Commands of the JAX package's CLI that wait for the generators (ROADMAP
+#: queue 1, the item after training: a text rasterizer without PIL).
 NOT_PORTED = {
-    "train": "Train the recognizer",
     "generate": "Generate synthetic line dataset",
     "generate-detector": "Generate a synthetic detector dataset",
-    "train-detector": "Train a text detector",
 }
 
-_COMMANDS = ("predict", *NOT_PORTED, "init-config", "-h", "--help",
-             "--version")
+_COMMANDS = ("predict", "train", "train-detector", *NOT_PORTED,
+             "init-config", "-h", "--help", "--version")
+
+# The reference's config-file spellings of the architecture knobs.
+_REF_CFG_ALIASES = {
+    "encoder_dim": "enc_dim", "encoder_layers": "enc_layers",
+    "encoder_heads": "enc_heads", "encoder_ffn_dim": "enc_ff",
+    "decoder_dim": "dec_dim", "decoder_layers": "dec_layers",
+    "decoder_heads": "dec_heads", "decoder_ffn_dim": "dec_ff",
+}
+# Config-file keys outside DEFAULT_TRAIN_CONFIG; they fill in only where the
+# flag was not given.
+_CFG_PASSTHROUGH = (
+    "train_labels", "val_labels", "vocab", "from_model", "resume",
+    "device", "hf_dataset", "hf_subset", "hf_val_split", "hf_streaming")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -96,12 +116,102 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enhance", action="store_true",
                    help="Adaptive crop cleanup for degraded captures")
 
+    _add_train_parser(sub)
+    _add_train_detector_parser(sub)
     for name, text in NOT_PORTED.items():
         sub.add_parser(name, help=f"{text} (not ported yet)")
 
     ic = sub.add_parser("init-config", help="Create a training config file")
     ic.add_argument("--output", "-o", default="train_config.yaml")
     return parser
+
+
+def _add_train_parser(sub) -> None:
+    t = sub.add_parser("train", help="Train the recognizer")
+    t.add_argument("--config", help="JSON or flat YAML config file")
+    t.add_argument("--train-labels", help="Path to training labels.txt")
+    t.add_argument("--val-labels", help="Path to validation labels.txt")
+    t.add_argument("--hf-dataset", "--hf-datasets", nargs="+",
+                   help="HuggingFace dataset ID(s) (not ported: needs the "
+                        "datasets package and the network)")
+    t.add_argument("--hf-subset", default=None)
+    t.add_argument("--hf-train-split", default="train")
+    t.add_argument("--hf-val-split", default=None)
+    t.add_argument("--hf-streaming", action="store_true")
+    t.add_argument("--hf-image-col", default="image")
+    t.add_argument("--hf-text-col", default="text")
+    t.add_argument("--hf-val-percent", type=float, default=0.1)
+    t.add_argument("--epochs", type=int, default=None)
+    t.add_argument("--batch-size", type=int, default=None)
+    t.add_argument("--lr", type=float, default=None)
+    t.add_argument("--weight-decay", type=float, default=None)
+    t.add_argument("--vocab", help="Path to vocab.json (auto-built if absent)")
+    t.add_argument("--height", type=int, default=None)
+    t.add_argument("--width", type=int, default=None)
+    t.add_argument("--max-seq-len", type=int, default=None)
+    t.add_argument("--ctc-weight", type=float, default=None)
+    t.add_argument("--dec-weight", type=float, default=None)
+    t.add_argument("--save-steps", type=int, default=None)
+    t.add_argument("--output-dir", default=None)
+    t.add_argument("--from-model", help="Warm-start checkpoint")
+    t.add_argument("--resume", action="store_true",
+                   help="Resume from <output-dir>/latest.safetensors")
+    t.add_argument("--device", default=None,
+                   help="cuda (the card, the default), cuda:N or cpu")
+    for short, long, dest in (
+            ("--enc-dim", "--encoder-dim", "enc_dim"),
+            ("--enc-layers", "--encoder-layers", "enc_layers"),
+            ("--enc-heads", "--encoder-heads", "enc_heads"),
+            ("--enc-ff", "--encoder-ffn-dim", "enc_ff"),
+            ("--dec-dim", "--decoder-dim", "dec_dim"),
+            ("--dec-layers", "--decoder-layers", "dec_layers"),
+            ("--dec-heads", "--decoder-heads", "dec_heads"),
+            ("--dec-ff", "--decoder-ffn-dim", "dec_ff")):
+        t.add_argument(short, long, type=int, default=None, dest=dest)
+    t.add_argument("--dropout", type=float, default=None)
+    t.add_argument("--n-devices", type=int, default=None)
+    t.add_argument("--model-parallel", type=int, default=1)
+    t.add_argument("--select-metric", choices=["ctc", "ar", "mean"],
+                   default="ctc", help="best-checkpoint criterion")
+    t.add_argument("--train-only", choices=["decoder"], default=None,
+                   help="'decoder' freezes encoder+CTC bit-exactly and "
+                        "trains only the AR decode path")
+    t.add_argument("--dec-input-noise", type=float, default=0.0,
+                   help="P(corrupt a decoder-input token)")
+
+
+#: train-detector's flags of the live generator: (flag, type, default).
+_GENERATOR_FLAGS = (("--image-size", int, 640), ("--pool-size", int, 256),
+                    ("--khmer-ratio", float, 0.3),
+                    ("--aug-conditions", float, 0.0),
+                    ("--aug-weights", None, None), ("--scale-aug", float, 0.0))
+
+
+def _add_train_detector_parser(sub) -> None:
+    td = sub.add_parser("train-detector", help="Train a text detector")
+    td.add_argument("--detector", choices=["db", "craft"], default="db")
+    td.add_argument("--data-yaml", default=None,
+                    help="generate-detector output directory (or a file in "
+                         "it); required: the live generator is not ported")
+    td.add_argument("--steps", type=int, default=2000)
+    td.add_argument("--epochs", type=int, default=None,
+                    help="Passes over the dataset (overrides --steps)")
+    td.add_argument("--batch-size", type=int, default=8)
+    td.add_argument("--lr", type=float, default=None)
+    td.add_argument("--model-size", choices=["n", "s", "m", "l", "x"],
+                    default="n", help="Accepted and ignored, as in kiri-tpu")
+    td.add_argument("--name", default=None,
+                    help="Run name -> runs/detect/<name>")
+    td.add_argument("--output-dir", default=None)
+    # The live generator's flags, accepted for kiri-tpu's command lines and
+    # ignored, as kiri-tpu ignores them with --data-yaml.
+    for flag, kind, default in _GENERATOR_FLAGS:
+        td.add_argument(flag, type=kind, default=default,
+                        help="the live generator's: ignored with --data-yaml")
+    td.add_argument("--from-model", default=None,
+                    help="warm-start detector weights (.safetensors)")
+    td.add_argument("--device", default="cuda",
+                    help="cuda (the card, the default), cuda:N or cpu")
 
 
 def _device(name: str) -> str:
@@ -229,6 +339,184 @@ def run_streaming_inference(ocr, image, args, output_dir: Path) -> None:
     print(f"\n✓ Saved to {output_dir / 'extracted_text.txt'}")
 
 
+def _scalar(text: str):
+    """A flat YAML scalar: quoted string, bool, null, int, float, a
+    [list], else the bare string."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    low = t.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("", "null", "~", "none"):
+        return None
+    if t.startswith("[") and t.endswith("]"):
+        return [_scalar(v) for v in t[1:-1].split(",") if v.strip()]
+    for cast in (int, float):
+        try:
+            return cast(t)
+        except ValueError:
+            pass
+    return t
+
+
+def load_config_file(path) -> dict:
+    """A JSON config file, or a flat ``key: value`` YAML one (what
+    ``init-config`` writes; ``#`` comments), read without PyYAML."""
+    p = Path(path)
+    text = p.read_text(encoding="utf-8")
+    if p.suffix.lower() not in (".yaml", ".yml"):
+        return json.loads(text)
+    out = {}
+    for n, line in enumerate(text.splitlines(), 1):
+        line = line.split(" #")[0].rstrip()
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        key, sep, value = line.partition(":")
+        if not sep or line[0].isspace():
+            raise ValueError(f"{path}:{n}: only flat 'key: value' lines are "
+                             "read")
+        out[key.strip()] = _scalar(value)
+    return out
+
+
+def merge_config(defaults, file_cfg, overrides) -> dict:
+    """Defaults, then the file's known keys, then every flag that was
+    given (not None)."""
+    merged = dict(defaults)
+    for k, v in (file_cfg or {}).items():
+        if k in merged:
+            merged[k] = v
+    for k, v in overrides.items():
+        if v is not None:
+            merged[k] = v
+    return merged
+
+
+def run_train(args) -> None:
+    from .config import CFG
+    from .data.datasets import load_local_dataset
+    from .tokenizer import CharTokenizer, build_vocab_from_texts
+    from .train.trainer import TrainConfig, canonical_samples, train_loop
+
+    file_cfg = load_config_file(args.config) if args.config else None
+    if file_cfg:
+        file_cfg = {_REF_CFG_ALIASES.get(k, k): v for k, v in file_cfg.items()}
+        if isinstance(file_cfg.get("hf_dataset"), str):
+            file_cfg["hf_dataset"] = [file_cfg["hf_dataset"]]
+        for k in _CFG_PASSTHROUGH:
+            if k in file_cfg and getattr(args, k, None) in (None, False):
+                setattr(args, k, file_cfg[k])
+    device = _device(args.device or "cuda")
+    merged = merge_config(
+        DEFAULT_TRAIN_CONFIG, file_cfg,
+        {k: getattr(args, k, None) for k in DEFAULT_TRAIN_CONFIG})
+    cfg = CFG(IMG_H=merged["height"], IMG_W=merged["width"],
+              ENC_DIM=merged["enc_dim"], ENC_LAYERS=merged["enc_layers"],
+              ENC_HEADS=merged["enc_heads"], ENC_FF=merged["enc_ff"],
+              DEC_DIM=merged["dec_dim"], DEC_LAYERS=merged["dec_layers"],
+              DEC_HEADS=merged["dec_heads"], DEC_FF=merged["dec_ff"],
+              DROPOUT=merged["dropout"], MAX_DEC_LEN=merged["max_seq_len"])
+
+    if args.hf_dataset:
+        raise RuntimeError(
+            "--hf-dataset: HuggingFace datasets are not ported (they need "
+            "the datasets package and the network; ROADMAP.md, the tail); "
+            "train from a labels.txt with --train-labels")
+    if not args.train_labels:
+        raise RuntimeError("--train-labels is required")
+    train_set = load_local_dataset(args.train_labels, cfg.IMG_H, cfg.IMG_W,
+                                   augment=True)
+    if args.val_labels:
+        val_set = load_local_dataset(args.val_labels, cfg.IMG_H, cfg.IMG_W)
+    else:
+        n_val = max(1, len(train_set) // 20)
+        val_set = [train_set[i] for i in range(n_val)]
+
+    out_dir = Path(merged["output_dir"])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    vocab_path = args.vocab
+    if not vocab_path:
+        vocab_path = str(out_dir / "vocab.json")
+        if not Path(vocab_path).exists():
+            print("🔤 Building vocabulary from training texts...")
+            build_vocab_from_texts(
+                (train_set[i]["text"] for i in range(len(train_set))),
+                vocab_path)
+    tok = CharTokenizer(vocab_path, cfg)
+    train_set.canonicalize(tok)
+
+    tc = TrainConfig(
+        epochs=merged["epochs"], batch_size=merged["batch_size"],
+        lr=merged["lr"], weight_decay=merged["weight_decay"],
+        ctc_weight=merged["ctc_weight"], dec_weight=merged["dec_weight"],
+        max_seq_len=merged["max_seq_len"], save_steps=merged["save_steps"],
+        out_dir=str(out_dir), n_devices=args.n_devices,
+        model_parallel=args.model_parallel,
+        select_metric=args.select_metric, train_only=args.train_only,
+        dec_input_noise=args.dec_input_noise)
+    train_samples = [train_set[i] for i in range(len(train_set))]
+    if isinstance(val_set, list):
+        val_samples = canonical_samples(val_set, tok)
+    else:
+        val_set.canonicalize(tok)
+        val_samples = [val_set[i] for i in range(len(val_set))]
+    train_loop(cfg, tok, tc, train_samples, val_samples,
+               vocab_path=vocab_path, from_model=args.from_model,
+               resume=args.resume, device=device)
+
+
+def run_train_detector(args) -> None:
+    from .data.docsynth import dataset_root
+    from .detect.db.train import LIVE_GENERATOR
+
+    device = _device(args.device)
+    ignored = [flag for flag, _, default in _GENERATOR_FLAGS
+               if getattr(args, flag[2:].replace("-", "_")) != default]
+    if ignored:
+        print(f"ℹ {', '.join(ignored)}: the live generator's, ignored with "
+              "--data-yaml")
+    if not args.data_yaml:
+        raise RuntimeError(f"--data-yaml is required: {LIVE_GENERATOR}")
+    default_out = (f"runs/detect/{args.name}" if args.name
+                   else ("checkpoints_db" if args.detector == "db"
+                         else "checkpoints_craft"))
+    steps = args.steps
+    if args.epochs:
+        n_docs = len(json.loads((dataset_root(args.data_yaml)
+                                 / "annotations.json").read_text()))
+        n_batches = max(1, (n_docs + args.batch_size - 1) // args.batch_size)
+        steps = args.epochs * n_batches
+        print(f"ℹ {args.epochs} epochs x {n_batches} batches = {steps} steps")
+    common = dict(steps=steps, batch_size=args.batch_size,
+                  data_dir=args.data_yaml,
+                  out_dir=args.output_dir or default_out)
+    if args.detector == "db":
+        from .detect.db import load_db_checkpoint
+        from .detect.db.net import build_db_net
+        from .detect.db.train import DBTrainConfig, train_db
+
+        tc = DBTrainConfig(**common)
+        if args.lr:
+            tc.lr = args.lr
+        net = (build_db_net(load_db_checkpoint(args.from_model))
+               if args.from_model else None)
+        train_db(tc, net=net, device=device)
+    else:
+        from .detect.craft import load_craft_checkpoint
+        from .detect.craft.net import build_craft_net
+        from .detect.craft.train import CRAFTTrainConfig, train_craft
+
+        tc = CRAFTTrainConfig(**common)
+        if args.lr:
+            tc.lr = args.lr
+        net = (build_craft_net(load_craft_checkpoint(args.from_model))
+               if args.from_model else None)
+        train_craft(tc, net=net, device=device)
+
+
 def init_config(args) -> None:
     out = Path(args.output)
     lines = ["# Kiri-TPU training configuration",
@@ -249,8 +537,9 @@ def main(argv=None) -> int:
         argv.insert(0, "predict")
 
     if argv and argv[0] in NOT_PORTED:
-        print(f"kiri-tpu-torch {argv[0]}: not ported yet (ROADMAP queue 1 "
-              "item 5, training); use kiri-tpu", file=sys.stderr)
+        print(f"kiri-tpu-torch {argv[0]}: not ported yet (ROADMAP queue 1, "
+              "the generators: they render text with PIL); use kiri-tpu",
+              file=sys.stderr)
         return 2
     parser = _build_parser()
     args = parser.parse_args(argv)
@@ -258,14 +547,16 @@ def main(argv=None) -> int:
     if args.command == "init-config":
         init_config(args)
         return 0
-    if args.command != "predict":
+    run = {"predict": run_inference, "train": run_train,
+           "train-detector": run_train_detector}.get(args.command)
+    if run is None:
         parser.print_help()
         return 0
     try:
-        run_inference(args)
+        run(args)
     except Exception as e:  # the message, then a failing status
         print(f"\n❌ Error: {e}", file=sys.stderr)
-        if args.verbose:
+        if getattr(args, "verbose", False):
             import traceback
 
             traceback.print_exc()

@@ -1,1 +1,2 @@
-"""Host-side text data helpers of the port."""
+"""Host-side data of the port: Khmer reordering, the line datasets of
+training and the detectors' ground truth."""

@@ -21,13 +21,12 @@ import numpy as np
 import torch
 
 from ... import native
-from ...checkpoints import read_safetensors
-from ...device import resolve_device
+from ...checkpoints import read_safetensors, write_safetensors
+from ...device import no_tf32, resolve_device
 from ...ops.imgproc import resize_u8
 from ...ops.preprocess import invert_if_dark, to_gray
 from ...utils.imageio import imread_bgr
-from ..db import _no_tf32
-from .net import CRAFTNet, build_craft_net
+from .net import CRAFTNet, build_craft_net, flat_from_state_dict
 
 
 def resize_aspect_ratio(img: np.ndarray, square_size: int, mag_ratio: float
@@ -121,6 +120,12 @@ def load_craft_checkpoint(path) -> Dict[str, np.ndarray]:
     return read_safetensors(path)
 
 
+def save_craft_checkpoint(path, net: CRAFTNet) -> None:
+    """Write ``net`` as the JAX package's CRAFT checkpoint (flat
+    ``params.<layer>.<leaf>``, HWIO kernels), which both packages load."""
+    write_safetensors(path, flat_from_state_dict(net.state_dict()))
+
+
 class CRAFTDetector:
     """CRAFT detector with the JAX package's constructor surface
     (canvas_size 1280, mag_ratio 1.5, thresholds 0.7 / 0.4 / 0.4), plus
@@ -163,7 +168,7 @@ class CRAFTDetector:
         affinity) on the device."""
         x = torch.from_numpy(np.ascontiguousarray(canvas_u8)).to(self.device)
         x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
-        with _no_tf32():
+        with no_tf32():
             region, affinity = self.net(x[:, None])
         return torch.sigmoid(torch.stack([region, affinity], 1)).to(
             torch.float16)

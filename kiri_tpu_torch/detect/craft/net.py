@@ -87,6 +87,22 @@ class CRAFTNet(nn.Module):
         head = self.head(x)
         return head[:, 0], head[:, 1]
 
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> "CRAFTNet":
+        """From-scratch weights with the JAX package's distributions: conv
+        kernels normal with std sqrt(2 / fan in), the head's bias 0,
+        GroupNorm at 1 and 0. ``gen`` is a CPU generator."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                w = m.weight
+                std = (2.0 / w[0].numel()) ** 0.5
+                w.copy_(torch.randn(w.shape, generator=gen) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.reset_parameters()
+        return self
+
 
 def state_dict_from_flat(flat: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
@@ -113,6 +129,28 @@ def state_dict_from_flat(flat: Dict[str, np.ndarray]
         else:
             raise ValueError(f"unexpected CRAFT checkpoint entry {key}")
     return sd
+
+
+def flat_from_state_dict(sd: Dict[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+    """Inverse of ``state_dict_from_flat``: ``CRAFTNet``'s state dict as
+    the JAX package's flat ``params.<layer>.<leaf>`` float32 arrays."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in sd.items():
+        v = val.detach().float().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "head":
+            layer, kind, name = "head", "conv", parts[1]
+        else:
+            _, layer, kind, name = parts
+        pre = f"params.{layer}"
+        if kind == "conv" and name == "weight":
+            flat[f"{pre}.w"] = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+        elif kind == "conv":
+            flat[f"{pre}.b"] = v
+        else:
+            flat[f"{pre}.gn.{'scale' if name == 'weight' else 'bias'}"] = v
+    return flat
 
 
 def build_craft_net(flat: Dict[str, np.ndarray]) -> CRAFTNet:

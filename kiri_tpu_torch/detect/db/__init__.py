@@ -13,7 +13,6 @@ download): the boxes are computed from the quantized map.
 """
 from __future__ import annotations
 
-import contextlib
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -22,12 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from ... import native
-from ...checkpoints import read_safetensors
-from ...device import resolve_device
+from ...checkpoints import read_safetensors, write_safetensors
+from ...device import no_tf32, resolve_device
 from ...ops.imgproc import resize_f32_linear, resize_u8
 from ...ops.preprocess import invert_if_dark, to_gray
 from ...utils.imageio import imread_bgr
-from .net import DBNet, build_db_net
+from .net import DBNet, build_db_net, flat_from_state_dict
 
 #: Canvas size buckets (multiples of 32).
 _SIZE_BUCKETS = (320, 448, 576, 704, 832, 960)
@@ -40,20 +39,16 @@ def _bucket(v: int) -> int:
     return _SIZE_BUCKETS[-1]
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full float32 for the scope of the forward: the
-    map is thresholded, so TF32 rounding would move marginal boxes."""
-    b = torch.backends.cudnn
-    with b.flags(enabled=b.enabled, benchmark=b.benchmark,
-                 deterministic=b.deterministic, allow_tf32=False):
-        yield
-
-
 def load_db_checkpoint(path) -> Dict[str, np.ndarray]:
     """The JAX package's DB checkpoint as flat numpy arrays
     (``params.<layer>.<leaf>``)."""
     return read_safetensors(path)
+
+
+def save_db_checkpoint(path, net: DBNet) -> None:
+    """Write ``net`` as the JAX package's DB checkpoint (flat
+    ``params.<layer>.<leaf>``, HWIO kernels), which both packages load."""
+    write_safetensors(path, flat_from_state_dict(net.state_dict()))
 
 
 class DBDetector:
@@ -156,7 +151,7 @@ class DBDetector:
         the device (int32: the values of round(prob * 65535))."""
         x = torch.from_numpy(np.ascontiguousarray(canvas_u8)).to(self.device)
         x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
-        with _no_tf32():
+        with no_tf32():
             prob = self.net(x[:, None])
         ds = self.det_map_downsample
         if ds > 1:

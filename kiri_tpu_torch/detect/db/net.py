@@ -71,8 +71,9 @@ def _up2(x: torch.Tensor) -> torch.Tensor:
 
 class DBNet(nn.Module):
     """images [B, 1, H, W] normalized to [-1, 1] (H, W divisible by 32) ->
-    probability map [B, H, W]. The threshold head is part of the checkpoint
-    (training reads it); inference reads only the probability map."""
+    probability map [B, H, W]; with ``train=True`` (probability map,
+    threshold map), the threshold head being the one only training reads.
+    GroupNorm holds no running state: both modes give the same numbers."""
 
     def __init__(self):
         super().__init__()
@@ -98,7 +99,7 @@ class DBNet(nn.Module):
             layers[f"{head}_d2"] = Deconv(FPN_CH, 1, norm=False)
         self.layers = nn.ModuleDict(layers)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, train: bool = False):
         L = self.layers
         x = F.relu(L["stem"](images))
         feats: List[torch.Tensor] = []
@@ -119,9 +120,31 @@ class DBNet(nn.Module):
             for _ in range(si):
                 u = _up2(u)
             cat.append(u)
-        h = F.relu(L["prob_c1"](torch.cat(cat, dim=1)))
-        h = F.relu(L["prob_d1"](h))
-        return torch.sigmoid(L["prob_d2"](h)[:, 0])
+        fused = torch.cat(cat, dim=1)
+        maps = []
+        for head in HEADS if train else HEADS[:1]:
+            h = F.relu(L[f"{head}_c1"](fused))
+            h = F.relu(L[f"{head}_d1"](h))
+            maps.append(torch.sigmoid(L[f"{head}_d2"](h)[:, 0]))
+        return tuple(maps) if train else maps[0]
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> "DBNet":
+        """From-scratch weights with the JAX package's distributions: conv
+        and deconv kernels normal with std sqrt(2 / fan in) (kh * kw * cin
+        of the JAX kernel), deconv biases 0, GroupNorm at 1 and 0. ``gen``
+        is a CPU generator."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                cin = w.shape[0 if isinstance(m, nn.ConvTranspose2d) else 1]
+                std = (2.0 / (w.shape[2] * w.shape[3] * cin)) ** 0.5
+                w.copy_(torch.randn(w.shape, generator=gen) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.reset_parameters()
+        return self
 
 
 def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -152,6 +175,27 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected DB checkpoint entry {key}")
     return sd
+
+
+def flat_from_state_dict(sd: Dict[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+    """Inverse of ``state_dict_from_jax``: ``DBNet``'s state dict as the
+    JAX package's flat ``params.<layer>.<leaf>`` float32 arrays."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in sd.items():
+        v = val.detach().float().cpu().numpy()
+        _, layer, kind, name = key.split(".")
+        pre = f"params.{layer}"
+        if kind == "deconv" and name == "weight":
+            flat[f"{pre}.w"] = np.ascontiguousarray(
+                v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+        elif kind == "conv":
+            flat[f"{pre}.w"] = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+        elif kind == "deconv":
+            flat[f"{pre}.b"] = v
+        else:
+            flat[f"{pre}.gn.{'scale' if name == 'weight' else 'bias'}"] = v
+    return flat
 
 
 def build_db_net(flat: Dict[str, np.ndarray]) -> DBNet:

@@ -1,5 +1,5 @@
 """Transformer building blocks as functions over torch tensors, the port of
-``kiri_tpu/models/layers.py`` (inference only).
+``kiri_tpu/models/layers.py``.
 
 Parameters keep torch's layout (``nn.Linear`` weights are [out, in]; the
 attention projections are the fused ``in_proj_weight`` [3D, D] split into
@@ -11,6 +11,12 @@ writes it. The decoder has a whole-sequence layer (``decoder_layer``) and a
 one-position layer over a K/V cache (``decoder_step_layer``), where the step
 counter is a host integer: the cache is written in place at it and read up
 to it.
+
+Training passes a dropout rate and a ``torch.Generator`` to the whole-sequence
+functions: dropout sits where the JAX package puts it (the attention weights,
+the FFN's hidden layer, each residual branch) in its form ``x * keep / (1 -
+p)``, with keep drawn from the generator. At rate 0 they are the inference
+functions; a rate above 0 with no generator raises.
 """
 from __future__ import annotations
 
@@ -22,6 +28,13 @@ import torch
 import torch.nn.functional as F
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, the type LayerNorm, softmax and the attention products
+    run in; float64 stays float64 (a reference run of the training
+    forward)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ weight.T (+ bias) in x's dtype. A bias of x's dtype goes into the
@@ -31,19 +44,36 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return (F.linear(x, weight.to(x.dtype)).float() + bias).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            shape=None) -> torch.Tensor:
+    """``x * keep / (1 - rate)``, keep ~ Bernoulli(1 - rate) drawn from
+    ``gen`` in ``shape`` (x's by default; a smaller shape broadcasts, as
+    Dropout2d's one draw a channel does); x itself at rate 0. A rate
+    above 0 needs a generator."""
+    if rate <= 0.0:
+        return x
+    if gen is None:
+        raise ValueError(f"dropout at rate {rate} needs a torch.Generator")
+    keep = torch.rand(x.shape if shape is None else shape, generator=gen,
+                      device=x.device) < 1.0 - rate
+    return x * keep / (1.0 - rate)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in float32, output back in x's dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], weight, bias, eps).to(x.dtype)
+    return F.layer_norm(wide(x), x.shape[-1:], weight, bias, eps).to(x.dtype)
 
 
 def mha(q_in: torch.Tensor, kv_in: torch.Tensor, in_proj_weight: torch.Tensor,
         in_proj_bias: torch.Tensor, out_weight: torch.Tensor,
         out_bias: torch.Tensor, n_heads: int,
-        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mask: Optional[torch.Tensor] = None, drop: float = 0.0,
+        gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Full (non-cached) multi-head attention over [B, T, D] inputs.
 
-    ``mask`` broadcasts to [B, heads, Tq, Tk]; True = masked out.
+    ``mask`` broadcasts to [B, heads, Tq, Tk]; True = masked out. ``drop``
+    is the dropout rate of the attention weights.
     """
     b, tq, d = q_in.shape
     tk = kv_in.shape[1]
@@ -53,48 +83,56 @@ def mha(q_in: torch.Tensor, kv_in: torch.Tensor, in_proj_weight: torch.Tensor,
     q = dense(q_in, wq, bq).view(b, tq, n_heads, hd).transpose(1, 2)
     k = dense(kv_in, wk, bk).view(b, tk, n_heads, hd).transpose(1, 2)
     v = dense(kv_in, wv, bv).view(b, tk, n_heads, hd).transpose(1, 2)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+    scores = torch.matmul(wide(q), wide(k).transpose(-1, -2)) / math.sqrt(hd)
     if mask is not None:
         scores = scores.masked_fill(mask, float("-inf"))
-    attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.matmul(attn.float(), v.float()).to(q.dtype)   # [B, H, Tq, hd]
+    attn = dropout(torch.softmax(scores, dim=-1).to(q.dtype), drop, gen)
+    out = torch.matmul(wide(attn), wide(v)).to(q.dtype)      # [B, H, Tq, hd]
     out = out.transpose(1, 2).reshape(b, tq, d)
     return dense(out, out_weight, out_bias)
 
 
 def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    return dense(F.gelu(dense(x, w1, b1)), w2, b2)
+        w2: torch.Tensor, b2: torch.Tensor, drop: float = 0.0,
+        gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    return dense(dropout(F.gelu(dense(x, w1, b1)), drop, gen), w2, b2)
 
 
-def encoder_layer(layer, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+def encoder_layer(layer, x: torch.Tensor, n_heads: int, drop: float = 0.0,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Pre-norm GELU encoder layer over an ``EncoderLayer`` module's
     parameters (torch ``TransformerEncoderLayer(norm_first=True)`` names)."""
     a = layer.self_attn
     h = layer_norm(x, layer.norm1.weight, layer.norm1.bias)
-    x = x + mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
-                a.out_proj.bias, n_heads)
+    h = mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+            a.out_proj.bias, n_heads, drop=drop, gen=gen)
+    x = x + dropout(h, drop, gen)
     h = layer_norm(x, layer.norm2.weight, layer.norm2.bias)
-    return x + ffn(h, layer.linear1.weight, layer.linear1.bias,
-                   layer.linear2.weight, layer.linear2.bias)
+    h = ffn(h, layer.linear1.weight, layer.linear1.bias,
+            layer.linear2.weight, layer.linear2.bias, drop, gen)
+    return x + dropout(h, drop, gen)
 
 
 def decoder_layer(layer, x: torch.Tensor, mem: torch.Tensor, n_heads: int,
-                  causal_mask: torch.Tensor) -> torch.Tensor:
+                  causal_mask: torch.Tensor, drop: float = 0.0,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Pre-norm decoder layer over a whole sequence: self-attention under
     ``causal_mask`` -> cross-attention over ``mem`` -> FFN (a ``DecoderLayer``
     module's parameters, torch ``TransformerDecoderLayer(norm_first=True)``
     names)."""
     a, c = layer.self_attn, layer.multihead_attn
     h = layer_norm(x, layer.norm1.weight, layer.norm1.bias)
-    x = x + mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
-                a.out_proj.bias, n_heads, mask=causal_mask)
+    h = mha(h, h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+            a.out_proj.bias, n_heads, mask=causal_mask, drop=drop, gen=gen)
+    x = x + dropout(h, drop, gen)
     h = layer_norm(x, layer.norm2.weight, layer.norm2.bias)
-    x = x + mha(h, mem, c.in_proj_weight, c.in_proj_bias, c.out_proj.weight,
-                c.out_proj.bias, n_heads)
+    h = mha(h, mem, c.in_proj_weight, c.in_proj_bias, c.out_proj.weight,
+            c.out_proj.bias, n_heads, drop=drop, gen=gen)
+    x = x + dropout(h, drop, gen)
     h = layer_norm(x, layer.norm3.weight, layer.norm3.bias)
-    return x + ffn(h, layer.linear1.weight, layer.linear1.bias,
-                   layer.linear2.weight, layer.linear2.bias)
+    h = ffn(h, layer.linear1.weight, layer.linear1.bias,
+            layer.linear2.weight, layer.linear2.bias, drop, gen)
+    return x + dropout(h, drop, gen)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The recognizer as an ``nn.Module``: CNN stem + Transformer encoder + CTC
 head + Transformer decoder with its two output heads (the port of
-``kiri_tpu/models/recognizer.py``, inference only).
+``kiri_tpu/models/recognizer.py``).
 
 Submodule and parameter names are the checkpoint's own torch names
 (``stem.net.{0..11}``, ``enc.layers.i.*``, ``ctc_head.{0,2}``, ``mem_proj``,
@@ -11,6 +11,14 @@ Submodule and parameter names are the checkpoint's own torch names
 ``kernels.stem.stem_fused`` on weights folded once (``Stem.folded``), and the
 decoder runs on ``Recognizer.decoder_weights``: its matrices cast to the
 compute dtype and the two output heads fused, once per (dtype, device).
+
+Training (``train=True`` of ``encode``, and ``decoder_train_logits``) is a
+separate forward that autograd can follow: the stem is not BN-folded (a conv
+in the compute dtype, BatchNorm over the batch in float32, SiLU, then
+Dropout2d), every parameter is cast on each call, and dropout draws from an
+explicit ``torch.Generator`` at the rate the caller passes (the trainer's
+``cfg.DROPOUT``). The flag is an argument, not ``module.training``: an
+engine that validates the model under training calls ``.eval()`` on it.
 """
 from __future__ import annotations
 
@@ -19,14 +27,17 @@ from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.stem import STRIDES, FoldedStem, StemWeightCache, stem_fused
+from ..kernels.stem import (BN_EPS, STRIDES, FoldedStem, StemWeightCache,
+                            stem_fused)
 from ..ops.preprocess import normalize_u8
 from ..weight_cache import WeightCache
 from . import layers as L
 
 STEM_CHANNELS = (48, 96, 160)   # the last block goes to ENC_DIM
+BN_MOMENTUM = 0.1
 
 
 class Stem(nn.Module):
@@ -45,6 +56,43 @@ class Stem(nn.Module):
         """The BN-folded weights for ``dtype`` on the parameters' device,
         folded once and again only after the parameters or buffers change."""
         return self._folded.get(self.net, dtype)
+
+    def train_forward(self, x: torch.Tensor, drop: float,
+                      gen: Optional[torch.Generator]):
+        """The training stem: x [B, H, W] in the compute dtype -> (NHWC
+        [B, H/8, W/4, D], the four BatchNorms' new running (mean, var)).
+        Each conv runs in x's dtype; BatchNorm normalizes by the batch's
+        statistics in float32; the running statistics take momentum 0.1 and
+        the unbiased variance; Dropout2d drops whole channels at the end."""
+        h = x.unsqueeze(1)
+        stats = []
+        for i, stride in enumerate(STRIDES):
+            conv, bn = self.net[3 * i], self.net[3 * i + 1]
+            h = F.conv2d(h, conv.weight.to(h.dtype), stride=stride, padding=1)
+            hf = L.wide(h)
+            mean = hf.mean(dim=(0, 2, 3))
+            var = hf.var(dim=(0, 2, 3), unbiased=False)
+            inv = torch.rsqrt(var + BN_EPS) * bn.weight
+            y = ((hf - mean[:, None, None]) * inv[:, None, None]
+                 + bn.bias[:, None, None])
+            h = F.silu(y.to(h.dtype))
+            n = h.shape[0] * h.shape[2] * h.shape[3]
+            with torch.no_grad():
+                stats.append((
+                    (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean,
+                    (1 - BN_MOMENTUM) * bn.running_var
+                    + BN_MOMENTUM * var * n / max(n - 1, 1)))
+        h = L.dropout(h, drop, gen, (h.shape[0], h.shape[1], 1, 1))
+        return h.permute(0, 2, 3, 1), stats
+
+    @torch.no_grad()
+    def set_running_stats(self, stats) -> None:
+        """Write ``train_forward``'s new running statistics (in place, so
+        the folded weights are made again)."""
+        for i, (mean, var) in enumerate(stats):
+            bn = self.net[3 * i + 1]
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
 
 
 class Attention(nn.Module):
@@ -153,32 +201,98 @@ class Recognizer(nn.Module):
         if cfg.USE_LM:
             self.lm_head = nn.Linear(dd, vocab_size + 3)
 
-    def encode(self, images: torch.Tensor, dtype: torch.dtype
-               ) -> torch.Tensor:
+    def encode(self, images: torch.Tensor, dtype: torch.dtype,
+               train: bool = False, drop: float = 0.0,
+               gen: Optional[torch.Generator] = None):
         """u8 [B, H, W] (or [B, 1, H, W]), or lines already normalized to
         [-1, 1], -> encoder memory [B, W/4, D] in ``dtype``: stem -> 2D
-        position table -> mean over height -> LN -> encoder -> LN."""
+        position table -> mean over height -> LN -> encoder -> LN.
+
+        ``train=True`` runs the training forward (``Stem.train_forward``,
+        dropout at rate ``drop`` drawn from ``gen``) and returns (memory, the
+        stem's new running statistics); otherwise the stem is
+        ``stem_fused`` on the folded weights."""
         if images.dim() == 4:
             images = images[:, 0]
         x = (normalize_u8(images, dtype) if images.dtype == torch.uint8
              else images.to(dtype))
-        feat = stem_fused(x, self.stem.folded(dtype))
+        if train:
+            feat, stats = self.stem.train_forward(x, drop, gen)
+        elif drop:
+            raise ValueError("dropout belongs to the training forward "
+                             "(train=True)")
+        else:
+            feat = stem_fused(x, self.stem.folded(dtype))
         _, h, w, c = feat.shape
         feat = feat + _pos_enc_2d(h, w, c).to(feat.device, dtype)
         seq = feat.mean(dim=1)
         seq = L.layer_norm(seq, self.enc_ln_in.weight, self.enc_ln_in.bias)
         for layer in self.enc.layers:
-            seq = L.encoder_layer(layer, seq, self.enc_heads)
-        return L.layer_norm(seq, self.enc_ln.weight, self.enc_ln.bias)
+            seq = L.encoder_layer(layer, seq, self.enc_heads, drop, gen)
+        mem = L.layer_norm(seq, self.enc_ln.weight, self.enc_ln.bias)
+        return (mem, stats) if train else mem
 
-    def ctc_logits(self, mem: torch.Tensor) -> torch.Tensor:
-        """CTC head (LN -> Linear), float32 logits [B, T, C]."""
+    def ctc_logits(self, mem: torch.Tensor, drop: float = 0.0,
+                   gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """CTC head (LN -> Dropout at rate ``drop`` -> Linear), float32
+        logits [B, T, C] (float64 in a float64 run)."""
         ln, proj = self.ctc_head[0], self.ctc_head[2]
         h = L.layer_norm(mem, ln.weight, ln.bias)
-        return L.dense(h, proj.weight, proj.bias).float()
+        h = L.dropout(h, drop, gen)
+        return L.wide(L.dense(h, proj.weight, proj.bias))
 
     def mem_project(self, mem: torch.Tensor) -> torch.Tensor:
         return L.dense(mem, self.mem_proj.weight)
+
+    def decoder_train_logits(self, mem_proj: torch.Tensor,
+                             tgt_ids: torch.Tensor, drop: float = 0.0,
+                             gen: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+        """Teacher-forced decoder logits for training: tgt_ids [B, L]
+        (bos-shifted inputs) over mem_proj [B, T, D] in the compute dtype ->
+        float32 dec_head logits [B, L, V]. Causal mask, no key-padding mask;
+        dropout at rate ``drop`` after the embedding and inside every
+        layer."""
+        dtype = mem_proj.dtype
+        lt = tgt_ids.shape[1]
+        x = self.dec_emb.weight.to(dtype)[tgt_ids.long()]
+        if hasattr(self, "dec_pos_enc"):
+            x = x + self.dec_pos_enc.pe[0, :lt].to(dtype)
+        x = L.dropout(x, drop, gen)
+        causal = torch.ones((lt, lt), dtype=torch.bool,
+                            device=x.device).triu(1)
+        for layer in self.dec.layers:
+            x = L.decoder_layer(layer, x, mem_proj, self.dec_heads, causal,
+                                drop, gen)
+        x = L.layer_norm(x, self.dec_ln.weight, self.dec_ln.bias)
+        return L.wide(L.dense(x, self.dec_head.weight, self.dec_head.bias))
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> "Recognizer":
+        """From-scratch weights with the JAX package's distributions: convs
+        and linears (the attention projections too) uniform in +-1 /
+        sqrt(fan in), biases likewise, the embedding standard normal, norms
+        at 1 and 0, running statistics at 0 and 1. ``gen`` is a CPU
+        generator."""
+        def uniform(t: torch.Tensor, fan_in: int) -> None:
+            bound = fan_in ** -0.5
+            t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                uniform(m.weight, m.in_features)
+                if m.bias is not None:
+                    uniform(m.bias, m.in_features)
+            elif isinstance(m, Attention):
+                uniform(m.in_proj_weight, m.in_proj_weight.shape[1])
+                uniform(m.in_proj_bias, m.in_proj_weight.shape[1])
+            elif isinstance(m, nn.Conv2d):
+                uniform(m.weight, m.weight[0].numel())
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+                m.reset_parameters()
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen))
+        return self
 
     # ----------------------------------------------------------- decoder
     def decoder_weights(self, dtype: torch.dtype) -> DecoderWeights:

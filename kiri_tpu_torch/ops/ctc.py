@@ -1,10 +1,12 @@
-"""CTC ops, the port of ``kiri_tpu/ops/ctc.py``: greedy statistics and the
-forward-algorithm alignment score the decoder paths rank candidates with."""
+"""CTC ops, the port of ``kiri_tpu/ops/ctc.py``: greedy statistics, the
+forward-algorithm alignment score the decoder paths rank candidates with, and
+the training loss."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30   # finite, as in the JAX package: NEG_INF - NEG_INF stays 0
 
@@ -94,3 +96,26 @@ def ctc_alignment_scores(log_probs: torch.Tensor, labels: torch.Tensor,
     blank_score = log_probs[:, :, blank_id].mean(dim=-1)
     return torch.where(label_lens > 0, ll / label_lens.clamp(min=1),
                        blank_score)
+
+
+def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
+             labels: torch.Tensor, label_lens: torch.Tensor,
+             blank_id: int = 0) -> torch.Tensor:
+    """Batched CTC negative log-likelihood with the JAX package's reduction.
+
+    logits [B, T, C] raw, logit_lens [B], labels [B, Lmax] CTC ids (padding
+    past label_lens ignored), label_lens [B] -> a float32 scalar (float64
+    for float64 logits): each row's -log p(labels) divided by its label
+    count, rows with no labels left out, averaged over the rest. An
+    infeasible row (no alignment fits) adds 0 and no gradient.
+    ``F.ctc_loss``'s own ``reduction="mean"`` would count the empty rows, so
+    it reduces nothing here.
+    """
+    log_probs = torch.log_softmax(logits if logits.dtype == torch.float64
+                                  else logits.float(), dim=-1).transpose(0, 1)
+    nll = F.ctc_loss(log_probs, labels.long(), logit_lens.long(),
+                     label_lens.long(), blank=blank_id, reduction="none",
+                     zero_infinity=True)
+    has = label_lens > 0
+    nll = torch.where(has, nll / label_lens.clamp(min=1), 0.0)
+    return nll.sum() / has.sum().clamp(min=1)

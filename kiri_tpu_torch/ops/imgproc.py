@@ -21,7 +21,13 @@ follow OpenCV's own code (``imgproc/src/resize.cpp``, ``color_rgb``):
   the function for the operation order;
 - ``rotate_bilinear``: Pillow's ``Image.rotate(angle, BILINEAR,
   expand=False, fillcolor=fill)`` of an "L" image (``Geometry.c``: float64
-  positions at pixel centres, truncation of the filtered value).
+  positions at pixel centres, truncation of the filtered value);
+- ``pil_resize_width_bilinear``: Pillow's ``Image.resize((w, H), BILINEAR)``
+  of an "L" image (``Resample.c``: the triangle filter widened by the scale
+  when it shrinks, float64 coefficients normalised per output pixel, then
+  rounded to 22-bit fixed point, sums rounded half up and clipped);
+- ``pil_gray``: Pillow's ``convert("L")`` of RGB(A) pixels, the fixed-point
+  luma (19595 R + 38470 G + 7471 B + 0x8000) >> 16.
 
 A cv2 built with Intel IPP (the pip wheels) hands ``INTER_CUBIC`` of images
 at least 4 px wide and high to IPP, whose float code depends on the CPU's
@@ -270,6 +276,60 @@ def rotate_bilinear(img: np.ndarray, angle: float, fill: int) -> np.ndarray:
     v2 = q0 + (q1 - q0) * dx
     v = np.where((y + 1 >= 0) & (y + 1 < h), v1 + (v2 - v1) * dy, v1)
     return np.where(inside, np.trunc(v), fill).astype(np.uint8)
+
+
+_PIL_BITS = 22               # Resample.c's PRECISION_BITS for 8-bit images
+
+
+def pil_gray(rgb: np.ndarray) -> np.ndarray:
+    """u8 [H, W, 3|4] RGB(A) -> u8 [H, W] as Pillow's ``convert("L")``;
+    alpha is ignored."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def _pil_bilinear_coeffs(in_size: int, out_size: int):
+    """Per output pixel: first source pixel, tap count and fixed-point
+    weights [out, taps] of Pillow's bilinear filter."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    xmins = np.zeros(out_size, np.int64)
+    counts = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = np.array([max(0.0, 1.0 - abs((x + xmin - center + 0.5)
+                                          / filterscale))
+                      for x in range(xmax)], np.float64)
+        ww = float(sum(w.tolist()))
+        if ww != 0.0:
+            w = w / ww
+        q = w * (1 << _PIL_BITS)
+        kk[xx, :xmax] = np.where(q < 0, np.trunc(q - 0.5), np.trunc(q + 0.5))
+        xmins[xx], counts[xx] = xmin, xmax
+    return xmins, counts, kk
+
+
+def pil_resize_width_bilinear(img: np.ndarray, width: int) -> np.ndarray:
+    """u8 [H, W] -> u8 [H, width] as Pillow's ``Image.resize((width, H),
+    Image.BILINEAR)``: only the horizontal pass runs."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    if width == w:
+        return img.copy()
+    xmins, counts, kk = _pil_bilinear_coeffs(w, width)
+    acc = np.full((h, width), 1 << (_PIL_BITS - 1), np.int64)
+    src = img.astype(np.int64)
+    for t in range(kk.shape[1]):
+        live = t < counts
+        cols = np.where(live, xmins + t, 0)
+        acc += src[:, cols] * np.where(live, kk[:, t], 0)[None]
+    return np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8)
 
 
 #: Columns per block of OpenCV's vectorised linear warp (two AVX2 vectors

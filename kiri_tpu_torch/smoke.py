@@ -8,7 +8,11 @@ renderer:
 - ``assets/smoke_pages.npz`` (``scripts/make_torch_smoke_pages.py``): 9
   rendered bilingual pages, their ground truth and the JAX package's
   detections and ``process_document`` results; 3 rotated pages with its
-  deskew answers, and its CRAFT answers on all 12.
+  deskew answers, and its CRAFT answers on all 12;
+- ``assets/smoke_train.npz`` (``scripts/make_torch_smoke_train.py``): the
+  JAX package's float32 step-0 losses of the recognizer on 32 smoke lines
+  and of DB and CRAFT on 4 generated documents, which ``write_detector_dataset``
+  lays out as a ``generate-detector`` directory.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 
 SMOKE_LINES = Path(__file__).resolve().parent / "assets" / "smoke_lines.npz"
 SMOKE_PAGES = Path(__file__).resolve().parent / "assets" / "smoke_pages.npz"
+SMOKE_TRAIN = Path(__file__).resolve().parent / "assets" / "smoke_train.npz"
 
 
 def _split(flat: np.ndarray, shapes: np.ndarray) -> List[np.ndarray]:
@@ -170,3 +175,36 @@ def tint(gray: np.ndarray) -> np.ndarray:
     ink = np.array([150.0, 40.0, 30.0])
     paper = np.array([200.0, 245.0, 250.0])
     return np.rint(ink + (paper - ink) * g[..., None]).astype(np.uint8)
+
+
+def load_smoke_train() -> Dict[str, np.ndarray]:
+    """Every array of ``smoke_train.npz``; ``det_annotations`` parsed."""
+    with np.load(SMOKE_TRAIN) as f:
+        data = {k: f[k] for k in f.files}
+    data["det_annotations"] = json.loads(str(data["det_annotations"]))
+    return data
+
+
+def write_detector_dataset(root, images: np.ndarray, annotations: List[dict]
+                           ) -> str:
+    """A ``generate-detector`` directory under ``root`` (``images/*.png``,
+    ``gt/*.npy`` of both detectors, ``annotations.json``) for u8 pages
+    [N, H, W] and their annotations, the ground truth made by the port's
+    ``data/docsynth.py``. Returns ``root``."""
+    from .data.docsynth import craft_ground_truth, db_ground_truth
+    from .utils.imageio import imwrite_png
+
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "gt").mkdir(exist_ok=True)
+    for img, rec in zip(images, annotations):
+        name = rec["image"]
+        imwrite_png(root / "images" / name, img)
+        maps = dict(zip(("db_prob", "db_thresh", "db_tmask"),
+                        db_ground_truth(img.shape, rec["lines"])))
+        maps.update(zip(("region", "affinity"),
+                        craft_ground_truth(img.shape, rec["chars"])))
+        for kind, arr in maps.items():
+            np.save(root / "gt" / f"{name}.{kind}.npy", arr)
+    (root / "annotations.json").write_text(json.dumps(annotations))
+    return str(root)

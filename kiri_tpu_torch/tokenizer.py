@@ -9,13 +9,19 @@
   ``decode_dec`` drops specials and maps <unk> to "".
 
 With ``cfg.KHMER_VISUAL_ORDER`` the model's tokens are visual-order Khmer:
-encoding applies ``to_visual_order`` and every decode its inverse.
+encoding applies ``to_visual_order`` and every decode its inverse. That
+inverse is exact only on canonical cluster order, so ``canonical_text`` gives
+the text a label decodes back to; training replaces each label by it once, at
+load (a difference from the JAX package, which trains and scores the label
+as given).
+
+``build_vocab_from_texts`` writes a vocab of the characters of some texts.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Sequence, Union
+from typing import Dict, Iterable, List, Sequence, Union
 
 import numpy as np
 
@@ -95,6 +101,11 @@ class CharTokenizer:
         return self._to_logical("".join(out))
 
     # ------------------------------------------------------------- encoding
+    def canonical_text(self, text: str) -> str:
+        """The text that ``text`` decodes back to once encoded: the round
+        trip through visual order, the identity without it."""
+        return self._to_logical(self._to_visual(text))
+
     def encode_raw(self, text: str) -> List[int]:
         """Text -> raw char ids (<unk> for unknown characters)."""
         return [self.token_to_id.get(ch, self.unk_id)
@@ -108,3 +119,18 @@ class CharTokenizer:
         ids = [i + self.dec_offset for i in self.encode_raw(text)]
         return ([self.dec_bos] if add_bos else []) + ids + (
             [self.dec_eos] if add_eos else [])
+
+
+def build_vocab_from_texts(texts: Iterable[str], out_path: Union[str, Path],
+                           unk_token: str = "<unk>") -> str:
+    """Write a vocab of the characters of ``texts`` (newline left out):
+    ``unk_token`` gets id 0, the characters 1.. in sorted order."""
+    chars = set()
+    for t in texts:
+        chars.update(t)
+    chars.discard("\n")
+    vocab = {unk_token: 0}
+    for i, ch in enumerate(sorted(chars), start=1):
+        vocab[ch] = i
+    Path(out_path).write_text(json.dumps(vocab, ensure_ascii=False, indent=0))
+    return str(out_path)

@@ -5,7 +5,9 @@ PNG is read and written here with the standard library (``zlib``,
 palette images (palette and grey also at 1, 2 and 4 bits), not interlaced,
 with all five row filters (undone in ``native/cvops.cpp``). ``imread_bgr``
 gives what ``cv2.imread(path)`` gives: BGR bytes, grey repeated over the
-three channels, alpha dropped, the palette expanded. Other files (and
+three channels, alpha dropped, the palette expanded; ``imread_gray``
+what Pillow's ``Image.open(path).convert("L")`` gives (training's
+datasets read lines so). Other files (and
 PNGs of another kind: 16-bit, interlaced) are read through cv2 or PIL
 where one can be imported; the machine with the card has neither.
 """
@@ -158,3 +160,29 @@ def imread_bgr(path: Union[str, Path]) -> Optional[np.ndarray]:
         return _read_other(path)
     except (ValueError, zlib.error, struct.error):
         return None
+
+
+def imread_gray(path: Union[str, Path]) -> np.ndarray:
+    """u8 [H, W] of an image file as Pillow's ``Image.open(path).convert(
+    "L")`` gives it: grey kept, alpha dropped, colour (and palette) through
+    Pillow's fixed-point luma. PNG is decoded here; other files need PIL.
+    Raises when the file cannot be read."""
+    from ..ops.imgproc import pil_gray
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == PNG_SIGNATURE:
+        try:
+            samples = read_png(data)
+        except UnsupportedPNG:
+            samples = None
+        if samples is not None:
+            return (np.ascontiguousarray(samples[..., 0])
+                    if samples.shape[2] <= 2 else pil_gray(samples))
+    try:
+        image = importlib.import_module("PIL.Image")
+    except ImportError:
+        raise RuntimeError(f"cannot read {path}: the port reads 8-bit PNG "
+                           "files itself; any other file needs PIL") from None
+    with image.open(path) as im:
+        return np.asarray(im.convert("L"), dtype=np.uint8)

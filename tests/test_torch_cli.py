@@ -11,8 +11,9 @@ reader/writer against kiri_tpu's and cv2 on the CPU:
 - the port exits 1 on an error where kiri_tpu prints it and exits 0
   (ROADMAP queue 3), and fails before any OCR work when rendering is asked
   for without Pillow;
-- ``--version``, ``init-config``, the implicit ``predict`` and the commands
-  that are not ported;
+- ``--version``, ``init-config``, the implicit ``predict``, the commands
+  that are not ported (the generators) and the training commands without
+  their data;
 - the PNG reader gives ``cv2.imread``'s bytes for every colour type."""
 from __future__ import annotations
 
@@ -178,10 +179,16 @@ def test_version_init_config_and_not_ported_commands(tmp_path, capsys):
     jcli.main(["init-config", "-o", str(jcfg)])
     assert tcli.main(["init-config", "-o", str(tcfg)]) == 0
     assert tcfg.read_text() == jcfg.read_text()
-    for cmd in ("train", "generate", "generate-detector", "train-detector"):
+    for cmd in ("generate", "generate-detector"):
         assert tcli.main([cmd, "--epochs", "1"]) == 2
         err = capsys.readouterr().err
         assert "not ported yet" in err and "ROADMAP" in err
+    # Training is ported (tests/test_torch_train_cli.py): without data it
+    # runs and fails with the missing flag's name.
+    for cmd, flag in (("train", "--train-labels"),
+                      ("train-detector", "--data-yaml")):
+        assert tcli.main([cmd, "--epochs", "1", "--device", "cpu"]) == 1
+        assert flag in capsys.readouterr().err
     proc = subprocess.run([sys.executable, "-m", "kiri_tpu_torch.cli",
                            "--version"], cwd=REPO, capture_output=True,
                           text=True, timeout=120)

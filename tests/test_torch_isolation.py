@@ -77,3 +77,30 @@ def test_page_entry_points_refuse_cpu_fallback(monkeypatch):
                  lambda: DBDetector(det), lambda: TextDetector("db", det)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_training_modules_are_covered():
+    """The training slice's modules are among those imported above."""
+    mods = set(_port_modules())
+    assert {"kiri_tpu_torch.train.trainer", "kiri_tpu_torch.train.checkpoints",
+            "kiri_tpu_torch.data.datasets", "kiri_tpu_torch.data.docsynth",
+            "kiri_tpu_torch.detect.db.train",
+            "kiri_tpu_torch.detect.craft.train"} <= mods
+
+
+def test_training_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    """Trainer, train_db and train_craft with no device mean the card."""
+    from kiri_tpu_torch.config import CFG
+    from kiri_tpu_torch.detect.craft.train import CRAFTTrainConfig, train_craft
+    from kiri_tpu_torch.detect.db.train import DBTrainConfig, train_db
+    from kiri_tpu_torch.tokenizer import CharTokenizer
+    from kiri_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tok = CharTokenizer(REPO / "models" / "vocab.json", CFG())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(CFG(), tok, TrainConfig())
+    for fn, tc in ((train_db, DBTrainConfig(data_dir=str(tmp_path))),
+                   (train_craft, CRAFTTrainConfig(data_dir=str(tmp_path)))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(tc, verbose=False)
