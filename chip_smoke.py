@@ -109,7 +109,35 @@
    It prints the trainer's steps/s and lines/s, host ms of ``collate`` and
    of the step, the device's busy share of a step, peak memory, and the
    detector trainers' steps/s;
-9. prints one throughput line per method, one line per streamed method with
+9. the generators phase, against ``kiri_tpu``'s answers in
+   ``kiri_tpu_torch/assets/smoke_gen.npz`` (``scripts/make_torch_smoke_gen.py``),
+   with font discovery off (the pseudo-glyph pool, as the fixture was
+   drawn), each device run with the counters at 0: (a) 64 augmented lines
+   of ``MultilingualDatasetGenerator(khmer_ratio=0.5, sign_boost=0.3)``
+   through ``generate_dataset``: every image's digest and ``labels.txt``
+   equal; (b) one 640 x 640 document per layout, each under every
+   condition and ``rotated+noisy``, one rescaled to 960 x 960: digests,
+   lines, texts and chars equal; (c) ``kiri-tpu-torch generate-detector
+   --num-train 8 --num-val 2`` through ``cli.main``: every file's digest
+   equal; (d) the DB and CRAFT trainers' live pools (batch 8, 640 x 640,
+   ``aug_conditions`` 0.5, CRAFT ``scale_aug`` 0.5): both batches' digests
+   equal, then ``train_db`` and ``train_craft`` from the committed
+   checkpoints, 20 steps with ``pool_size=16``: float32 step 0 within 1e-4
+   (relative) of ``kiri_tpu``'s stored loss on the same batch; their
+   steps/s from the pool and with ``pool_size=0`` come from two runs of
+   different lengths; (e) ``kiri-tpu-torch generate -n 128`` (labels and
+   images equal), then ``kiri-tpu-torch train`` on it, 5 epochs of 2
+   steps at batch 64 in bf16 from ``models/model.safetensors``, its
+   validation through the stem kernel; (f) ``evalpage.eval_condition`` over
+   4 pages per condition (clean, rotated, noisy, textured, low contrast,
+   inverted) with ``OCR`` on the committed checkpoints: float32 rows equal
+   and texts equal on identical boxes, bf16 with ``preprocess="device"``
+   the same line recall and CERs within ``kiri_tpu``'s + 0.005. It prints
+   lines/s, docs/s and ms per condition on the host, the live trainers'
+   steps/s pooled and with ``pool_size=0`` and ``make_batch``'s share of
+   a step, and pages/s of ``eval_condition``, each with the card's name
+   and power limit;
+10. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -121,6 +149,7 @@ from __future__ import annotations
 
 import base64
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -172,6 +201,7 @@ TRAIN_BATCH = 64
 TRAIN_REPEAT = 6          # the 64 lines six times: 6 steps an epoch
 TRAIN_EPOCHS = 5
 DET_STEPS = 20
+GEN_TIMED_STEPS = 10      # live-pool steps/s: 2N steps less N steps
 BATCH = 128
 WIDTHS = (160, 320, 480, 640)
 
@@ -1852,6 +1882,325 @@ def training_phase(torch, np, drive, card):
             f.allow_tf32 = on
 
 
+class _Recorder:
+    """An OCR whose ``process_document`` results are kept as [box, text]."""
+
+    def __init__(self, ocr):
+        self.ocr, self.pages = ocr, []
+
+    def process_document(self, img):
+        res = self.ocr.process_document(img)
+        self.pages.append([[list(map(int, r["box"])), r["text"]]
+                           for r in res])
+        return res
+
+
+def _plain(x):
+    """Tuples as lists, as a JSON round trip gives them."""
+    return json.loads(json.dumps(x, ensure_ascii=False))
+
+
+def generators_phase(torch, np, drive, card):
+    """The synthetic-data generators on the host and their device paths,
+    against ``kiri_tpu``'s answers in ``assets/smoke_gen.npz`` (see the
+    module's docstring, item 9)."""
+    import random
+    import shutil
+
+    from kiri_tpu_torch import cli, evalpage
+    from kiri_tpu_torch.data import docsynth as D
+    from kiri_tpu_torch.data import synth as S
+    from kiri_tpu_torch.detect.craft import load_craft_checkpoint
+    from kiri_tpu_torch.detect.craft.net import build_craft_net
+    from kiri_tpu_torch.detect.craft.train import (CRAFTTrainConfig,
+                                                   scale_generators,
+                                                   train_craft)
+    from kiri_tpu_torch.detect.craft.train import make_batch as craft_batch
+    from kiri_tpu_torch.detect.db import load_db_checkpoint
+    from kiri_tpu_torch.detect.db.net import build_db_net
+    from kiri_tpu_torch.detect.db.train import DBTrainConfig, train_db
+    from kiri_tpu_torch.detect.db.train import make_batch as db_batch
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.smoke import (GEN_AUG, GEN_BATCH, GEN_CHAIN,
+                                      GEN_DOC_SIZE, GEN_DOC_SIZES,
+                                      GEN_EVAL_CONDITIONS, GEN_EVAL_PAGES,
+                                      GEN_GENERATE, GEN_LINES, GEN_POOL,
+                                      GEN_RESCALE, GEN_SCALE_AUG, GEN_SEED,
+                                      cond_seed, digest, load_smoke_gen,
+                                      tree_digests)
+    from kiri_tpu_torch.utils.imageio import imread_gray
+
+    # The fixture was drawn with the pseudo-glyph pool: discovery off here
+    # too, whatever fonts this machine holds.
+    S._FONT_DIRS[:] = []
+    fx = load_smoke_gen()
+    print(f"gen: fixture made with {fx['versions']}; here numpy "
+          f"{np.__version__}, Pillow "
+          f"{'present' if S.pillow_modules() else 'absent'}", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="kiri_smoke_gen_"))
+    ckpt = REPO / "models" / "model.safetensors"
+    det_path = str(REPO / "models" / "detector.safetensors")
+    try:
+        # (a) lines through generate_dataset.
+        t0 = time.perf_counter()
+        gen = S.MultilingualDatasetGenerator(
+            str(tmp / "lines"), khmer_ratio=0.5, sign_boost=0.3,
+            seed=GEN_SEED, fonts=S.FontManager(font_dirs=[]))
+        gen.generate_dataset(GEN_LINES)
+        dt = time.perf_counter() - t0
+        labels = (tmp / "lines" / "labels.txt").read_text(encoding="utf-8")
+        got = [digest(imread_gray(tmp / "lines" / "images"
+                                  / row.split("\t")[0]))
+               for row in labels.splitlines()]
+        same = sum(a == b for a, b in zip(got, fx["lines_digests"]))
+        check(labels == fx["lines_labels"] and same == GEN_LINES == len(got),
+              f"gen lines: {same}/{GEN_LINES} images equal kiri_tpu's, "
+              f"labels.txt {'identical' if labels == fx['lines_labels'] else 'DIFFERENT'}")
+        print(f"gen lines (host, pseudo-glyph pool, augmented, {card}): "
+              f"{GEN_LINES / dt:.1f} lines/s, {1e3 * dt / GEN_LINES:.2f} ms "
+              "a line, PNG writing included", flush=True)
+
+        # (b) one document per layout, every condition, a chain, a rescale.
+        docs = fx["docs"]
+        dg = D.DocumentGenerator(GEN_DOC_SIZE, GEN_DOC_SIZE, khmer_ratio=0.4,
+                                 fonts=S.FontManager(font_dirs=[],
+                                                     sizes=GEN_DOC_SIZES))
+        bad, n, t_doc, t_cond = [], 0, 0.0, {}
+
+        def hold(key, d):
+            want = docs[key]
+            ok = (digest(d["image"]) == want["digest"]
+                  and _plain([d["lines"], d["texts"], d["chars"]])
+                  == [want["lines"], want["texts"], want["chars"]])
+            if not ok:
+                bad.append(key)
+
+        for layout in D.LAYOUTS:
+            t0 = time.perf_counter()
+            doc = dg.generate(layout)
+            t_doc += time.perf_counter() - t0
+            hold(layout, doc)
+            n += 1
+            for cond in (*D.CONDITIONS, GEN_CHAIN):
+                rng = random.Random(cond_seed(layout, cond))
+                t0 = time.perf_counter()
+                d = doc
+                for c in cond.split("+"):
+                    d = D.apply_condition(d, c, rng)
+                t_cond[cond] = t_cond.get(cond, 0.0) + (
+                    time.perf_counter() - t0)
+                hold(f"{layout}/{cond}", d)
+                n += 1
+            if layout == D.LAYOUTS[0]:
+                hold("rescale", D.rescale_doc(doc, GEN_RESCALE, GEN_RESCALE))
+                n += 1
+        check(not bad, f"gen documents: {n - len(bad)}/{n} documents (6 "
+              f"layouts, each under {len(D.CONDITIONS)} conditions and "
+              f"{GEN_CHAIN}, a {GEN_RESCALE}^2 rescale) equal kiri_tpu's "
+              f"images, lines, texts and chars"
+              + (f"; differ: {bad[:6]}" if bad else ""))
+        n_lay = len(D.LAYOUTS)
+        print(f"gen documents (host, {GEN_DOC_SIZE}^2, {card}): "
+              f"{n_lay / t_doc:.2f} docs/s ({1e3 * t_doc / n_lay:.1f} ms a "
+              "document); ms a condition: " + ", ".join(
+                  f"{c} {1e3 * t / n_lay:.1f}" for c, t in t_cond.items()),
+              flush=True)
+
+        # (c) generate-detector through the command line.
+        t0 = time.perf_counter()
+        rc = cli.main(["generate-detector", "--num-train", "8", "--num-val",
+                       "2", "--kind", "both", "--output", str(tmp / "det")])
+        dt = time.perf_counter() - t0
+        files = tree_digests(tmp / "det")
+        diff = sorted(k for k in set(files) | set(fx["detector_files"])
+                      if files.get(k) != fx["detector_files"].get(k))
+        check(rc == 0 and not diff,
+              f"gen generate-detector: {len(files)} files (images, "
+              f"annotations.json, GT .npy) equal kiri_tpu's"
+              + (f"; differ: {diff[:5]}" if diff else ""))
+        print(f"gen generate-detector (host, 10 documents of "
+              f"{GEN_DOC_SIZE}^2 with both detectors' GT, {card}): "
+              f"{10 / dt:.2f} docs/s", flush=True)
+
+        # (d) the detector trainers' live pools, then training from them.
+        n_pool = GEN_POOL // GEN_BATCH
+        for kind in ("db", "craft"):
+            gen = D.DocumentGenerator(GEN_DOC_SIZE, GEN_DOC_SIZE,
+                                      seed=GEN_SEED, khmer_ratio=0.3)
+            if kind == "db":
+                def make():
+                    return db_batch(gen, GEN_BATCH, GEN_DOC_SIZE, GEN_AUG)
+            else:
+                small = scale_generators(CRAFTTrainConfig(
+                    image_size=GEN_DOC_SIZE, seed=GEN_SEED, khmer_ratio=0.3,
+                    scale_aug=GEN_SCALE_AUG), gen)
+
+                def make():
+                    return craft_batch(gen, GEN_BATCH, GEN_DOC_SIZE, GEN_AUG,
+                                       None, GEN_SCALE_AUG, small)
+            pool = [make() for _ in range(n_pool)]
+            got = [{k: digest(v) for k, v in b.items()} for b in pool]
+            check(got == fx[f"{kind}_batches"],
+                  f"gen {kind} make_batch: {n_pool} live batches of "
+                  f"{GEN_BATCH} ({', '.join(pool[0])}) equal kiri_tpu's")
+            del pool
+            common = dict(steps=DET_STEPS, batch_size=GEN_BATCH,
+                          lr=TRAIN_LR, image_size=GEN_DOC_SIZE,
+                          pool_size=GEN_POOL, aug_conditions=GEN_AUG,
+                          seed=GEN_SEED, khmer_ratio=0.3, log_every=0,
+                          out_dir=str(tmp / kind))
+            if kind == "db":
+                tc, fn = DBTrainConfig(**common), train_db
+                parts = ("loss", "prob_loss", "bin_loss", "thresh_loss")
+
+                def net():
+                    return build_db_net(load_db_checkpoint(det_path))
+            else:
+                tc = CRAFTTrainConfig(**common, scale_aug=GEN_SCALE_AUG)
+                fn, parts = train_craft, ("loss",)
+
+                def net():
+                    return build_craft_net(load_craft_checkpoint(
+                        REPO / "models" / "craft.safetensors"))
+            hist = []
+            drive(f"gen {kind} live pool", lambda: [fn(
+                tc, verbose=False, net=net(), device="cuda", history=hist)],
+                ())
+            want = fx[f"{kind}_step0"]
+            errs = {k: _rel(hist[0][k], want[k]) for k in parts}
+            losses = [h["loss"] for h in hist]
+            check(len(hist) == DET_STEPS and max(errs.values())
+                  <= TOL_TRAIN_STEP0 and all(np.isfinite(losses)),
+                  f"gen train {kind} live (pool_size {GEN_POOL}): f32 step 0 "
+                  + ", ".join(f"{k} {hist[0][k]:.6f} vs kiri_tpu "
+                              f"{want[k]:.6f} (rel {errs[k]:.1e})"
+                              for k in parts)
+                  + f" (tol {TOL_TRAIN_STEP0:g}); loss {losses[0]:.5f} -> "
+                  f"{losses[-1]:.5f} over {len(losses)} steps")
+            # Speeds: two runs that differ only in their steps, so the set-up,
+            # the pool and the checkpoint write cancel out.
+            def timed(pool_size, steps):
+                tc.pool_size, tc.steps = pool_size, steps
+                tc.out_dir = str(tmp / f"{kind}_{pool_size}_{steps}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(tc, verbose=False, net=net(), device="cuda")
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            t_pool = max(1e-6, (timed(GEN_POOL, 2 * GEN_TIMED_STEPS)
+                                - timed(GEN_POOL, GEN_TIMED_STEPS))
+                         / GEN_TIMED_STEPS)
+            t_fresh = max(1e-6, (timed(0, 6) - timed(0, 2)) / 4)
+            t0 = time.perf_counter()
+            for _ in range(4):
+                make()
+            t_make = (time.perf_counter() - t0) / 4
+            print(f"gen train {kind} live ({card}; f32, TF32 off, batch "
+                  f"{GEN_BATCH}, {GEN_DOC_SIZE}^2): from the pool "
+                  f"{1 / t_pool:.2f} steps/s; pool_size 0 {1 / t_fresh:.2f} "
+                  f"steps/s, of which {100 * (1 - t_pool / t_fresh):.1f}% "
+                  f"is making the batch on the host; make_batch alone "
+                  f"{1e3 * t_make:.0f} ms a batch (mean of 4; conditions "
+                  "vary the cost)", flush=True)
+
+        # (e) generate, then train the recognizer on it through the CLI.
+        t0 = time.perf_counter()
+        rc = cli.main(["generate", "-n", str(GEN_GENERATE), "-o",
+                       str(tmp / "gen")])
+        dt = time.perf_counter() - t0
+        lab = (tmp / "gen" / "labels.txt").read_text(encoding="utf-8")
+        files = tree_digests(tmp / "gen")
+        dig = hashlib.sha256("".join(
+            v for k, v in files.items() if k.endswith(".png"))
+            .encode()).hexdigest()
+        check(rc == 0 and lab == fx["generate_labels"]
+              and dig == fx["generate_digest"],
+              f"gen generate -n {GEN_GENERATE}: labels.txt and every image "
+              f"equal kiri_tpu's ({GEN_GENERATE / dt:.1f} lines/s on the "
+              "host)")
+        labels_file = str(tmp / "gen" / "labels.txt")
+        out_dir = tmp / "rec"
+        rc = drive("gen train recognizer (CLI, bf16)", lambda: [cli.main([
+            "train", "--train-labels", labels_file, "--val-labels",
+            labels_file, "--epochs", "5", "--batch-size", "64",
+            "--from-model", str(ckpt), "--vocab",
+            str(REPO / "models" / "vocab.json"), "--output-dir",
+            str(out_dir), "--device", "cuda"])], ("stem_fused",))
+        hist = json.loads((out_dir / "history.json").read_text())
+        check(rc == [0] and len(hist) == 5
+              and all(np.isfinite(h["loss"]) and "val_ctc_acc" in h
+                      for h in hist)
+              and (out_dir / "latest.safetensors").exists(),
+              f"gen train recognizer: 5 epochs of 2 steps on the generated "
+              f"lines (loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+              f"val acc {hist[-1].get('val_ctc_acc', float('nan')):.4f}), "
+              "checkpoints written")
+
+        # (f) eval_condition on the card, float32 and bf16.
+        rows = fx["eval_rows"]
+        for name, kw, needs in (
+                ("f32", dict(use_fp16=False), ("stem_fused_f32",)),
+                ("bf16", dict(use_fp16=True, preprocess="device"),
+                 ("stem_fused", "preprocess_lines"))):
+            ocr = OCR(str(ckpt), det_model_path=det_path, device="cuda", **kw)
+            t_all, pages = 0.0, 0
+            for cond in GEN_EVAL_CONDITIONS:
+                rec = _Recorder(ocr)
+                t0 = time.perf_counter()
+                row = drive(f"gen eval {name} {cond}", lambda: [
+                    evalpage.eval_condition(rec, cond, GEN_EVAL_PAGES,
+                                            page=GEN_DOC_SIZE)], needs)[0]
+                t_all += time.perf_counter() - t0
+                pages += row["docs"]
+                want = rows[name][cond]
+                if name == "f32":
+                    n, same, _, diff = _same_texts(rec.pages, want["texts"])
+                    check(row == want["row"] and not diff,
+                          f"gen eval f32 {cond}: row {row} "
+                          + ("equals" if row == want["row"] else "DIFFERS from")
+                          + f" kiri_tpu's; {same}/{n} texts on identical "
+                          "boxes equal" + (f"; differ: {diff[:2]}"
+                                           if diff else ""))
+                else:
+                    w = want["row"]
+                    check(row["line_recall"] == w["line_recall"]
+                          and row["matched_cer"] <= w["matched_cer"]
+                          + PAGE_CER_SLACK and row["end2end_cer"]
+                          <= w["end2end_cer"] + PAGE_CER_SLACK,
+                          f"gen eval bf16 {cond}: recall "
+                          f"{row['line_recall']} (kiri_tpu {w['line_recall']}"
+                          f"), matched CER {row['matched_cer']} (kiri_tpu "
+                          f"{w['matched_cer']} + {PAGE_CER_SLACK}), end2end "
+                          f"{row['end2end_cer']} ({w['end2end_cer']}), doc "
+                          f"{row['doc_cer']}")
+            print(f"gen eval_condition {name} ({card}): {pages} pages of "
+                  f"{GEN_DOC_SIZE}^2 in {t_all:.1f} s = "
+                  f"{pages / t_all:.2f} pages/s (generation and conditions "
+                  "on the host included)", flush=True)
+            del ocr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _same_texts(got_pages, want_pages):
+    """(lines, texts equal on identical boxes, boxes not identical, the
+    differing texts) of two runs' [box, text] pages."""
+    n = same = other = 0
+    diff = []
+    for g, w in zip(got_pages, want_pages):
+        n += len(w)
+        want = {tuple(b): t for b, t in w}
+        for b, t in g:
+            if tuple(b) not in want:
+                other += 1
+            elif want[tuple(b)] == t:
+                same += 1
+            else:
+                diff.append((t, want[tuple(b)]))
+    return n, same, other, diff
+
+
 def host_and_device_ms(torch, fn, reps: int = 5, match: str = ""):
     """(host ms a call, synchronized; the device's busy ms a call: the sum
     of device-side events under torch.profiler), after one warm-up call.
@@ -1947,6 +2296,8 @@ def main() -> int:
                                                     by_run), card)
     training_phase(torch, np, functools.partial(drive_run, counts, by_run),
                    card)
+    generators_phase(torch, np, functools.partial(drive_run, counts, by_run),
+                     card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

@@ -1,9 +1,9 @@
 """The command line of the port (``kiri-tpu-torch``, or ``python -m
 kiri_tpu_torch.cli``): the port of ``kiri_tpu/cli.py``.
 
-``predict`` and ``train`` take every flag of the JAX package's (a bare
-image path means ``predict``), ``train-detector`` too (with ``--data-yaml``),
-and ``--version`` and ``init-config``. What differs:
+``predict``, ``train``, ``generate``, ``generate-detector`` and
+``train-detector`` take every flag of the JAX package's (a bare image path
+means ``predict``), and ``--version`` and ``init-config``. What differs:
 
 - ``--device`` is the card by default (``cuda``); ``cpu`` runs on the host;
   ``tpu`` is refused;
@@ -12,14 +12,15 @@ and ``--version`` and ``init-config``. What differs:
   (the result images draw glyphs with it) before any OCR work;
 - ``train --hf-dataset`` exits 1: HuggingFace datasets need the
   ``datasets`` package and the network (ROADMAP.md, the tail);
-  ``train-detector`` without ``--data-yaml`` exits 1: the live document
-  generator draws text with PIL; its flags (``--image-size``,
-  ``--aug-weights`` ...) are accepted and ignored, as the JAX package
-  ignores them with ``--data-yaml``;
+- ``train-detector`` trains from the live document generator unless
+  ``--data-yaml`` is given; with it, the generator's flags (``--image-size``,
+  ``--aug-weights`` ...) are named as ignored, as the JAX package ignores
+  them;
+- ``generate`` and ``generate-detector`` draw with the procedural
+  pseudo-glyph fonts where Pillow is missing (the system's TrueType fonts
+  need it); ``--fonts-dir`` and ``--font`` then exit 1;
 - a config file is JSON, or the flat ``key: value`` YAML that
-  ``init-config`` writes, read without PyYAML;
-- ``generate`` and ``generate-detector`` are not ported yet (they render
-  text with PIL): they exit with status 2 and name the ROADMAP item.
+  ``init-config`` writes, read without PyYAML.
 """
 from __future__ import annotations
 
@@ -54,15 +55,8 @@ DEFAULT_TRAIN_CONFIG = {
     "dropout": 0.15,
 }
 
-#: Commands of the JAX package's CLI that wait for the generators (ROADMAP
-#: queue 1, the item after training: a text rasterizer without PIL).
-NOT_PORTED = {
-    "generate": "Generate synthetic line dataset",
-    "generate-detector": "Generate a synthetic detector dataset",
-}
-
-_COMMANDS = ("predict", "train", "train-detector", *NOT_PORTED,
-             "init-config", "-h", "--help", "--version")
+_COMMANDS = ("predict", "train", "generate", "generate-detector",
+             "train-detector", "init-config", "-h", "--help", "--version")
 
 # The reference's config-file spellings of the architecture knobs.
 _REF_CFG_ALIASES = {
@@ -117,9 +111,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="Adaptive crop cleanup for degraded captures")
 
     _add_train_parser(sub)
+    _add_generate_parsers(sub)
     _add_train_detector_parser(sub)
-    for name, text in NOT_PORTED.items():
-        sub.add_parser(name, help=f"{text} (not ported yet)")
 
     ic = sub.add_parser("init-config", help="Create a training config file")
     ic.add_argument("--output", "-o", default="train_config.yaml")
@@ -180,6 +173,59 @@ def _add_train_parser(sub) -> None:
                    help="P(corrupt a decoder-input token)")
 
 
+def _add_generate_parsers(sub) -> None:
+    g = sub.add_parser("generate", help="Generate synthetic line dataset")
+    g.add_argument("--train-file", "-t", default=None,
+                   help="Text file, one line per sample (random if omitted)")
+    g.add_argument("--val-file", "-v", default=None,
+                   help="Validation text file (else 10%% split of train-file)")
+    g.add_argument("--output", "-o", default="data")
+    g.add_argument("--num-samples", "-n", type=int, default=1000)
+    g.add_argument("--language", "-l",
+                   choices=["english", "khmer", "mixed"], default=None,
+                   help="Script mix for random sampling (sets khmer-ratio)")
+    g.add_argument("--augment", "-a", type=int, default=1,
+                   help="Copies per train-file line (file-driven mode)")
+    g.add_argument("--val-augment", type=int, default=1)
+    g.add_argument("--height", type=int, default=48)
+    g.add_argument("--width", type=int, default=None,
+                   help="Max render width (over-wide lines are resized)")
+    g.add_argument("--fonts-dir", default=None,
+                   help="Extra font directory searched before system fonts "
+                        "(needs Pillow)")
+    g.add_argument("--font-mode", choices=["random", "all"], default="random",
+                   help="'all' renders every capable font per line")
+    g.add_argument("--random-augment", action="store_true",
+                   help="Re-roll augmentation on/off per rendered copy")
+    g.add_argument("--no-augment", action="store_true")
+    g.add_argument("--append", action="store_true")
+    g.add_argument("--khmer-ratio", type=float, default=0.0)
+
+    gd = sub.add_parser("generate-detector",
+                        help="Generate synthetic detector dataset")
+    gd.add_argument("--text-file", default=None,
+                    help="Corpus file for document lines (random if omitted); "
+                         "'lang:file,lang:file' pairs are merged")
+    gd.add_argument("--fonts-dir", default=None,
+                    help="Extra font directory ('lang:dir,...' accepted; "
+                         "needs Pillow)")
+    gd.add_argument("--font", default=None,
+                    help="Restrict rendering to one font file (needs Pillow)")
+    gd.add_argument("--output", default="detector_dataset")
+    gd.add_argument("--num-train", type=int, default=800)
+    gd.add_argument("--num-val", type=int, default=200)
+    gd.add_argument("--min-lines", type=int, default=None)
+    gd.add_argument("--max-lines", type=int, default=None)
+    gd.add_argument("--image-size", type=int, default=640)
+    gd.add_argument("--image-height", type=int, default=None,
+                    help="Document height (default: image-size)")
+    gd.add_argument("--no-augment", action="store_true")
+    gd.add_argument("--workers", type=int, default=1,
+                    help="Accepted; generation runs in one process")
+    gd.add_argument("--kind", choices=["db", "craft", "both"], default="both")
+    gd.add_argument("--khmer-ratio", type=float, default=0.0)
+
+
 #: train-detector's flags of the live generator: (flag, type, default).
 _GENERATOR_FLAGS = (("--image-size", int, 640), ("--pool-size", int, 256),
                     ("--khmer-ratio", float, 0.3),
@@ -192,10 +238,12 @@ def _add_train_detector_parser(sub) -> None:
     td.add_argument("--detector", choices=["db", "craft"], default="db")
     td.add_argument("--data-yaml", default=None,
                     help="generate-detector output directory (or a file in "
-                         "it); required: the live generator is not ported")
+                         "it); trains from disk instead of the live "
+                         "generator pool")
     td.add_argument("--steps", type=int, default=2000)
     td.add_argument("--epochs", type=int, default=None,
-                    help="Passes over the dataset (overrides --steps)")
+                    help="With --data-yaml: passes over the dataset "
+                         "(overrides --steps)")
     td.add_argument("--batch-size", type=int, default=8)
     td.add_argument("--lr", type=float, default=None)
     td.add_argument("--model-size", choices=["n", "s", "m", "l", "x"],
@@ -203,8 +251,7 @@ def _add_train_detector_parser(sub) -> None:
     td.add_argument("--name", default=None,
                     help="Run name -> runs/detect/<name>")
     td.add_argument("--output-dir", default=None)
-    # The live generator's flags, accepted for kiri-tpu's command lines and
-    # ignored, as kiri-tpu ignores them with --data-yaml.
+    # The live generator's flags, ignored with --data-yaml.
     for flag, kind, default in _GENERATOR_FLAGS:
         td.add_argument(flag, type=kind, default=default,
                         help="the live generator's: ignored with --data-yaml")
@@ -468,29 +515,118 @@ def run_train(args) -> None:
                resume=args.resume, device=device)
 
 
+def run_generate(args) -> None:
+    from .data.synth import DatasetGenerator, MultilingualDatasetGenerator
+
+    khmer_ratio = args.khmer_ratio
+    if args.language and not khmer_ratio:
+        khmer_ratio = {"english": 0.0, "khmer": 1.0,
+                       "mixed": 0.5}[args.language]
+    cls = MultilingualDatasetGenerator if khmer_ratio > 0 else DatasetGenerator
+    kwargs = {"khmer_ratio": khmer_ratio} if khmer_ratio > 0 else {}
+    gen = cls(args.output, height=args.height,
+              augment=not args.no_augment, fonts_dir=args.fonts_dir,
+              max_width=args.width, **kwargs)
+    # A --train-file gives the train/ and val/ layout; random text a flat
+    # images/ + labels.txt.
+    if args.train_file:
+        out = gen.generate_from_files(
+            args.train_file, val_file=args.val_file,
+            train_augment=args.augment, val_augment=args.val_augment,
+            font_mode=args.font_mode, random_augment=args.random_augment)
+        print(f"✓ Generated dataset -> {out}")
+        return
+    labels = gen.generate_dataset(args.num_samples, append=args.append)
+    print(f"✓ Generated {args.num_samples} samples -> {labels}")
+
+
+def _parse_lang_spec(spec):
+    """'lang:path,lang:path' -> list of paths; a plain existing path passes
+    through."""
+    if not spec:
+        return []
+    if Path(spec).exists():
+        return [spec]
+    out = []
+    for item in spec.split(","):
+        _, _, path = item.rpartition(":")
+        if path.strip():
+            out.append(path.strip())
+    return out
+
+
+def run_generate_detector(args) -> None:
+    from .data.docsynth import generate_detector_dataset
+    from .data.synth import _FONT_DIRS, FontManager, require_pillow
+
+    texts = None
+    for tf in _parse_lang_spec(args.text_file):
+        lines = [l.strip() for l in
+                 Path(tf).read_text(encoding="utf-8").splitlines()
+                 if l.strip()]
+        texts = (texts or []) + lines
+
+    fonts = None
+    if args.font:
+        require_pillow(f"--font {args.font}")
+        fonts = FontManager(font_dirs=[], sizes=(18, 22, 26, 30, 34))
+        fonts.font_paths = [args.font]
+        fonts.english_fonts = [args.font]
+        fonts.khmer_fonts = ([args.font]
+                             if fonts._supports(args.font, "កខ") else [])
+    elif args.fonts_dir:
+        require_pillow(f"--fonts-dir {args.fonts_dir}")
+        dirs = _parse_lang_spec(args.fonts_dir) + list(_FONT_DIRS)
+        fonts = FontManager(font_dirs=dirs, sizes=(18, 22, 26, 30, 34))
+
+    height = args.image_height or args.image_size
+    common = dict(kind=args.kind, khmer_ratio=args.khmer_ratio, texts=texts,
+                  min_lines=args.min_lines, max_lines=args.max_lines,
+                  augment=not args.no_augment, fonts=fonts)
+    out = Path(args.output)
+    generate_detector_dataset(str(out / "train"), args.num_train,
+                              args.image_size, height, **common)
+    generate_detector_dataset(str(out / "val"), args.num_val,
+                              args.image_size, height, seed=1337, **common)
+    print(f"✓ Detector dataset -> {out}")
+
+
+def _parse_aug_weights(spec):
+    """'rotated=3,noisy=1.5' -> {'rotated': 3.0, 'noisy': 1.5} (None if '')."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        name, _, val = part.partition("=")
+        out[name.strip()] = float(val)
+    return out
+
+
 def run_train_detector(args) -> None:
     from .data.docsynth import dataset_root
-    from .detect.db.train import LIVE_GENERATOR
 
     device = _device(args.device)
-    ignored = [flag for flag, _, default in _GENERATOR_FLAGS
-               if getattr(args, flag[2:].replace("-", "_")) != default]
-    if ignored:
-        print(f"ℹ {', '.join(ignored)}: the live generator's, ignored with "
-              "--data-yaml")
-    if not args.data_yaml:
-        raise RuntimeError(f"--data-yaml is required: {LIVE_GENERATOR}")
+    if args.data_yaml:
+        ignored = [flag for flag, _, default in _GENERATOR_FLAGS
+                   if getattr(args, flag[2:].replace("-", "_")) != default]
+        if ignored:
+            print(f"ℹ {', '.join(ignored)}: the live generator's, ignored "
+                  "with --data-yaml")
     default_out = (f"runs/detect/{args.name}" if args.name
                    else ("checkpoints_db" if args.detector == "db"
                          else "checkpoints_craft"))
     steps = args.steps
-    if args.epochs:
+    if args.epochs and args.data_yaml:
         n_docs = len(json.loads((dataset_root(args.data_yaml)
                                  / "annotations.json").read_text()))
         n_batches = max(1, (n_docs + args.batch_size - 1) // args.batch_size)
         steps = args.epochs * n_batches
         print(f"ℹ {args.epochs} epochs x {n_batches} batches = {steps} steps")
     common = dict(steps=steps, batch_size=args.batch_size,
+                  image_size=args.image_size, pool_size=args.pool_size,
+                  khmer_ratio=args.khmer_ratio,
+                  aug_conditions=args.aug_conditions,
+                  aug_weights=_parse_aug_weights(args.aug_weights),
                   data_dir=args.data_yaml,
                   out_dir=args.output_dir or default_out)
     if args.detector == "db":
@@ -509,7 +645,7 @@ def run_train_detector(args) -> None:
         from .detect.craft.net import build_craft_net
         from .detect.craft.train import CRAFTTrainConfig, train_craft
 
-        tc = CRAFTTrainConfig(**common)
+        tc = CRAFTTrainConfig(**common, scale_aug=args.scale_aug)
         if args.lr:
             tc.lr = args.lr
         net = (build_craft_net(load_craft_checkpoint(args.from_model))
@@ -530,17 +666,12 @@ def init_config(args) -> None:
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     """Run the command line; returns (and, as a script, exits with) the
-    status: 0, 1 on an error, 2 for a command that is not ported."""
+    status: 0, or 1 on an error."""
     argv = list(sys.argv[1:] if argv is None else argv)
     # A bare image path means predict.
     if argv and argv[0] not in _COMMANDS and not argv[0].startswith("-"):
         argv.insert(0, "predict")
 
-    if argv and argv[0] in NOT_PORTED:
-        print(f"kiri-tpu-torch {argv[0]}: not ported yet (ROADMAP queue 1, "
-              "the generators: they render text with PIL); use kiri-tpu",
-              file=sys.stderr)
-        return 2
     parser = _build_parser()
     args = parser.parse_args(argv)
 
@@ -548,6 +679,8 @@ def main(argv=None) -> int:
         init_config(args)
         return 0
     run = {"predict": run_inference, "train": run_train,
+           "generate": run_generate,
+           "generate-detector": run_generate_detector,
            "train-detector": run_train_detector}.get(args.command)
     if run is None:
         parser.print_help()

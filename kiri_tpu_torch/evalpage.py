@@ -1,8 +1,9 @@
-"""Page-level accuracy: OCR results scored against a page's ground truth
-(the scoring of ``kiri_tpu/evalpage.py``'s ``eval_condition``).
+"""Page-level accuracy: the port of ``kiri_tpu/evalpage.py``.
 
-The pages come already rendered (the generator is data code, ported with
-training): each is a dict with ``lines`` (x, y, w, h) and ``texts``, and
+``eval_condition`` renders synthetic pages (``data/docsynth.py``), degrades
+them under a robustness condition, runs ``ocr.process_document`` on each and
+scores the results with ``score_pages``. ``score_pages`` takes pages already
+rendered: each a dict with ``lines`` (x, y, w, h) and ``texts``, and
 optionally ``upright_lines``, the boxes before a geometric degradation,
 which set the ground truth's reading order. The rules:
 
@@ -16,11 +17,15 @@ those lines, as for a per-script CER.
 """
 from __future__ import annotations
 
+import random
+import time
+import zlib
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["levenshtein", "reading_order", "score_pages", "is_khmer"]
+__all__ = ["levenshtein", "reading_order", "score_pages", "is_khmer",
+           "eval_condition"]
 
 
 def levenshtein(a: str, b: str) -> int:
@@ -106,3 +111,37 @@ def score_pages(pages: Sequence[Dict], results: Iterable[List[Dict]],
         "end2end_cer": round((matched_err + missed_len)
                              / max(1, matched_len + missed_len), 4),
     }
+
+
+def eval_condition(ocr, cond: str, n: int, seed: int = 7000,
+                   khmer_ratio: float = 0.4, page: int = 640,
+                   deadline: Optional[float] = None) -> Dict:
+    """``ocr.process_document`` over ``n`` synthetic pages under one
+    robustness condition, scored against their ground truth.
+
+    ``cond`` is a condition of ``docsynth.CONDITIONS`` or a ``+`` chain of
+    them (``rotated+noisy``: the boxes go through each stage). Page ``i``
+    comes from ``DocumentGenerator(page, page, seed=seed + 13 i)`` and the
+    conditions draw from one ``random.Random`` seeded by the condition's
+    CRC-32, as in the JAX package. Past ``deadline`` (a
+    ``time.monotonic()`` value) no page is added after the first, and
+    ``docs`` says how many ran."""
+    from .data.docsynth import DocumentGenerator, apply_condition
+
+    rng = random.Random(seed + zlib.crc32(cond.encode()) % 1000)
+    pages, results = [], []
+    for i in range(n):
+        if deadline is not None and time.monotonic() > deadline and pages:
+            break
+        gen = DocumentGenerator(page, page, seed=seed + 13 * i,
+                                khmer_ratio=khmer_ratio)
+        doc = gen.generate()
+        upright = doc["lines"]
+        if cond != "clean":
+            for c in cond.split("+"):
+                doc = apply_condition(doc, c, rng)
+        results.append(ocr.process_document(np.asarray(doc["image"],
+                                                       np.uint8)))
+        pages.append({"lines": doc["lines"], "texts": doc["texts"],
+                      "upright_lines": upright})
+    return {"condition": cond, **score_pages(pages, results)}

@@ -26,6 +26,11 @@ follow OpenCV's own code (``imgproc/src/resize.cpp``, ``color_rgb``):
   of an "L" image (``Resample.c``: the triangle filter widened by the scale
   when it shrinks, float64 coefficients normalised per output pixel, then
   rounded to 22-bit fixed point, sums rounded half up and clipped);
+- ``pil_resize_bilinear``: the same on both axes, through Pillow's 8-bit
+  intermediate image;
+- ``gaussian_blur_u8`` and ``morph_2x2``: ``cv2.GaussianBlur(k, k, 0)``
+  for k = 3, 5 and ``cv2.erode``/``cv2.dilate`` with a 2x2 kernel, as the
+  line generator's augmentation calls them;
 - ``pil_gray``: Pillow's ``convert("L")`` of RGB(A) pixels, the fixed-point
   luma (19595 R + 38470 G + 7471 B + 0x8000) >> 16.
 
@@ -330,6 +335,68 @@ def pil_resize_width_bilinear(img: np.ndarray, width: int) -> np.ndarray:
         cols = np.where(live, xmins + t, 0)
         acc += src[:, cols] * np.where(live, kk[:, t], 0)[None]
     return np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_resize_bilinear(img: np.ndarray, width: int, height: int
+                        ) -> np.ndarray:
+    """u8 [H, W] -> u8 [height, width] as Pillow's ``Image.resize((width,
+    height), Image.BILINEAR)``: the horizontal pass (when the width
+    changes) into an 8-bit image, then the vertical pass over it with the
+    same filter, each rounded half up and clipped. (Pillow resamples only
+    the rows the vertical pass reads; the result is the same.)"""
+    img = np.ascontiguousarray(img, np.uint8)
+    if width != img.shape[1]:
+        img = pil_resize_width_bilinear(img, width)
+    if height != img.shape[0]:
+        img = np.ascontiguousarray(
+            pil_resize_width_bilinear(img.T, height).T)
+    return img
+
+
+def _reflect101(n: int, size: int, pad: int) -> np.ndarray:
+    """Source indices of [-pad, size + pad) under OpenCV's
+    ``BORDER_REFLECT_101`` (``borderInterpolate``; one pixel repeats)."""
+    idx = []
+    for p in range(-pad, size + pad):
+        if size == 1:
+            idx.append(0)
+            continue
+        while not 0 <= p < size:
+            p = -p if p < 0 else 2 * size - p - 2
+        idx.append(p)
+    return np.asarray(idx, np.int64)
+
+
+#: OpenCV's small Gaussian kernels of ``getGaussianKernel(k, 0)``, in the
+#: 8 fraction bits of its fixed-point u8 path (all exact).
+_GAUSS_Q8 = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16)}
+
+
+def gaussian_blur_u8(img: np.ndarray, k: int) -> np.ndarray:
+    """u8 [H, W] as OpenCV 5.0's ``cv2.GaussianBlur(img, (k, k), 0)`` for
+    k = 3 or 5: the bit-exact fixed-point path (row taps in 8 fraction bits,
+    columns in 16, the sum rounded half up), ``BORDER_REFLECT_101``."""
+    taps = _GAUSS_Q8[k]
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    r = k // 2
+    src = img.astype(np.int64)[_reflect101(h, h, r)][:, _reflect101(w, w, r)]
+    rows = sum(t * src[:, i:i + w] for i, t in enumerate(taps))
+    acc = sum(t * rows[i:i + h] for i, t in enumerate(taps))
+    return ((acc + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def morph_2x2(img: np.ndarray, op: str) -> np.ndarray:
+    """u8 [H, W] as ``cv2.erode`` (op "erode") or ``cv2.dilate``
+    ("dilate") with a 2x2 kernel of ones, one iteration: the anchor at
+    (1, 1), so each pixel takes the min or max of itself and its upper,
+    left and upper-left neighbours; pixels off the image are ignored."""
+    img = np.ascontiguousarray(img, np.uint8)
+    f = np.minimum if op == "erode" else np.maximum
+    out = img.copy()
+    out[1:] = f(out[1:], img[:-1])
+    out[:, 1:] = f(out[:, 1:], out[:, :-1].copy())
+    return out
 
 
 #: Columns per block of OpenCV's vectorised linear warp (two AVX2 vectors

@@ -6,9 +6,9 @@ PNG from ``utils/imageio.py``. ``draw_boxes`` and ``draw_results`` draw
 glyphs, which takes Pillow's font rasteriser; Pillow is imported when one of
 them is called (the machine with the card has none), and where it is
 missing the call raises and says to run without rendering (``predict
---no-render``). Their images are the JAX package's pixel for pixel, except
-Khmer text on a host without a Khmer font: the JAX package draws it with its
-procedural pseudo-glyphs, the port with the renderer's own font.
+--no-render``). Their images are the JAX package's pixel for pixel: Khmer
+text goes through a Khmer TTF where one is installed, else through the
+procedural pseudo-glyphs of the generators, as there.
 """
 from __future__ import annotations
 
@@ -22,8 +22,6 @@ import numpy as np
 
 from .utils.imageio import encode_png, imread_bgr
 
-_FONT_DIRS = ("/usr/share/fonts/truetype", "/usr/share/fonts",
-              "/usr/local/share/fonts")
 _KHMER = (0x1780, 0x17FF)
 
 
@@ -77,33 +75,22 @@ class DocumentRenderer:
         return self._font
 
     def _font_for(self, text: str):
-        """Khmer text goes through the first system font that draws two
-        Khmer letters as distinct, non-blank glyphs, else the own font."""
+        """Khmer text goes through the first Khmer-capable font of the
+        generators' ``FontManager``: a system TTF, else the procedural
+        pseudo-glyph pool; other text through the own font."""
         if not any(_KHMER[0] <= ord(c) <= _KHMER[1] for c in text):
             return self.font
         if self._khmer_font is None:
-            self._khmer_font = self._find_khmer_font() or self.font
-        return self._khmer_font
-
-    def _find_khmer_font(self):
-        image, image_draw, image_font = _pillow()
-        paths = sorted({str(f) for d in _FONT_DIRS if Path(d).exists()
-                        for ext in ("*.ttf", "*.otf")
-                        for f in Path(d).rglob(ext)})
-        for path in paths:
             try:
-                probe = image_font.truetype(path, 32)
+                from .data.synth import FontManager
+
+                fm = FontManager()
+                path = fm.khmer_fonts[0] if fm.khmer_fonts else None
+                self._khmer_font = (fm.get(path, max(12, self.font_size))
+                                    if path else self.font)
             except Exception:
-                continue
-            renders = []
-            for ch in "កខ":
-                im = image.new("L", (64, 64), 0)
-                image_draw.Draw(im).text((4, 4), ch, fill=255, font=probe)
-                renders.append(np.asarray(im))
-            if all(r.max() > 0 for r in renders) and not np.array_equal(
-                    *renders):
-                return image_font.truetype(path, max(12, self.font_size))
-        return None
+                self._khmer_font = self.font
+        return self._khmer_font
 
     @staticmethod
     def _load_rgb_array(image) -> np.ndarray:

@@ -12,10 +12,16 @@ renderer:
 - ``assets/smoke_train.npz`` (``scripts/make_torch_smoke_train.py``): the
   JAX package's float32 step-0 losses of the recognizer on 32 smoke lines
   and of DB and CRAFT on 4 generated documents, which ``write_detector_dataset``
-  lays out as a ``generate-detector`` directory.
+  lays out as a ``generate-detector`` directory;
+- ``assets/smoke_gen.npz`` (``scripts/make_torch_smoke_gen.py``): digests
+  of the JAX package's generated lines, documents under every condition, a
+  ``generate-detector`` directory, the detector trainers' live batches,
+  their step-0 losses and its ``eval_condition`` rows, all drawn with the
+  pseudo-glyph pool.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -25,6 +31,16 @@ import numpy as np
 SMOKE_LINES = Path(__file__).resolve().parent / "assets" / "smoke_lines.npz"
 SMOKE_PAGES = Path(__file__).resolve().parent / "assets" / "smoke_pages.npz"
 SMOKE_TRAIN = Path(__file__).resolve().parent / "assets" / "smoke_train.npz"
+SMOKE_GEN = Path(__file__).resolve().parent / "assets" / "smoke_gen.npz"
+#: What the generators fixture was made with (scripts/make_torch_smoke_gen.py).
+GEN_SEED, GEN_LINES, GEN_DOC_SIZE = 42, 64, 640
+GEN_DOC_SIZES = (18, 22, 26, 30, 34)
+GEN_RESCALE, GEN_CHAIN = 960, "rotated+noisy"
+GEN_POOL, GEN_BATCH, GEN_AUG, GEN_SCALE_AUG = 16, 8, 0.5, 0.5
+GEN_GENERATE = 128
+GEN_EVAL_CONDITIONS = ("clean", "rotated", "noisy", "textured",
+                       "low_contrast", "inverted")
+GEN_EVAL_PAGES = 4
 
 
 def _split(flat: np.ndarray, shapes: np.ndarray) -> List[np.ndarray]:
@@ -208,3 +224,52 @@ def write_detector_dataset(root, images: np.ndarray, annotations: List[dict]
             np.save(root / "gt" / f"{name}.{kind}.npy", arr)
     (root / "annotations.json").write_text(json.dumps(annotations))
     return str(root)
+
+
+def digest(a: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def cond_seed(layout: str, cond: str) -> int:
+    """The seed of the conditions' ``random.Random`` for one document."""
+    import zlib
+
+    return zlib.crc32(f"{layout}/{cond}".encode())
+
+
+def tree_digests(root) -> Dict[str, str]:
+    """{relative path: digest} of a generated directory: PNGs by their
+    decoded pixels, ``.npy`` files by their array, other files by their
+    bytes."""
+    from .utils.imageio import imread_gray
+
+    out = {}
+    root = Path(root)
+    for p in sorted(root.rglob("*")):
+        if not p.is_file():
+            continue
+        rel = str(p.relative_to(root))
+        if p.suffix == ".png":
+            out[rel] = digest(imread_gray(p))
+        elif p.suffix == ".npy":
+            out[rel] = digest(np.load(p))
+        else:
+            out[rel] = hashlib.sha256(p.read_bytes()).hexdigest()
+    return out
+
+
+def load_smoke_gen() -> Dict:
+    """Every array of ``smoke_gen.npz``, its JSON strings parsed."""
+    with np.load(SMOKE_GEN) as f:
+        data = {k: f[k] for k in f.files}
+    for k in ("versions", "docs", "detector_files", "db_batches",
+              "craft_batches", "db_step0", "craft_step0", "eval_rows"):
+        data[k] = json.loads(str(data[k]))
+    for k in ("lines_labels", "generate_labels", "generate_digest"):
+        data[k] = str(data[k])
+    data["lines_digests"] = [str(x) for x in data["lines_digests"]]
+    return data

@@ -11,9 +11,9 @@ reader/writer against kiri_tpu's and cv2 on the CPU:
 - the port exits 1 on an error where kiri_tpu prints it and exits 0
   (ROADMAP queue 3), and fails before any OCR work when rendering is asked
   for without Pillow;
-- ``--version``, ``init-config``, the implicit ``predict``, the commands
-  that are not ported (the generators) and the training commands without
-  their data;
+- ``--version``, ``init-config``, the implicit ``predict``, the
+  generators' commands (their output is kiri_tpu's) and the training
+  commands without their data;
 - the PNG reader gives ``cv2.imread``'s bytes for every colour type."""
 from __future__ import annotations
 
@@ -179,20 +179,46 @@ def test_version_init_config_and_not_ported_commands(tmp_path, capsys):
     jcli.main(["init-config", "-o", str(jcfg)])
     assert tcli.main(["init-config", "-o", str(tcfg)]) == 0
     assert tcfg.read_text() == jcfg.read_text()
-    for cmd in ("generate", "generate-detector"):
-        assert tcli.main([cmd, "--epochs", "1"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "ROADMAP" in err
-    # Training is ported (tests/test_torch_train_cli.py): without data it
-    # runs and fails with the missing flag's name.
-    for cmd, flag in (("train", "--train-labels"),
-                      ("train-detector", "--data-yaml")):
-        assert tcli.main([cmd, "--epochs", "1", "--device", "cpu"]) == 1
-        assert flag in capsys.readouterr().err
+    # The generators run and write kiri_tpu's files.
+    for cmd, flags in (("generate", ["-n", "3", "--khmer-ratio", "0.5"]),
+                       ("generate-detector", ["--num-train", "1",
+                                              "--num-val", "1",
+                                              "--image-size", "96"])):
+        out = {}
+        for name, main in (("j", jcli.main), ("t", tcli.main)):
+            out[name] = tmp_path / f"{cmd}_{name}"
+            opt = "-o" if cmd == "generate" else "--output"
+            assert main([cmd, *flags, opt, str(out[name])]) in (0, None)
+        _same_tree(out["j"], out["t"])
+    # Training without its data runs and fails naming what is missing.
+    for cmd, flag, want in (("train", [], "--train-labels"),
+                            ("train-detector",
+                             ["--data-yaml", str(tmp_path / "none")],
+                             "annotations.json")):
+        assert tcli.main([cmd, *flag, "--epochs", "1", "--device",
+                          "cpu"]) == 1
+        assert want in capsys.readouterr().err
     proc = subprocess.run([sys.executable, "-m", "kiri_tpu_torch.cli",
                            "--version"], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0 and "kiri-tpu-torch" in proc.stdout
+
+
+def _same_tree(a: Path, b: Path) -> None:
+    """Two generated directories: the same files, PNGs of the same pixels,
+    every other file byte for byte."""
+    from PIL import Image
+
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*")
+                           if p.is_file())
+    assert files
+    for rel in files:
+        if rel.suffix == ".png":
+            assert np.array_equal(np.asarray(Image.open(a / rel)),
+                                  np.asarray(Image.open(b / rel))), rel
+        else:
+            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
 
 
 def test_bare_image_means_predict(tmp_path, page_png, small_ckpt):
@@ -227,16 +253,30 @@ def test_png_reader_matches_cv2_imread(tmp_path, mode):
                               img)
 
 
-def test_khmer_overlay_without_a_khmer_font():
-    """Where no system font draws Khmer, kiri_tpu draws Khmer overlay text
-    with its procedural pseudo-glyphs (data/pseudofont.py, part of the
-    training data generators) and the port with the renderer's own font;
-    Latin text uses the own font in both (ROADMAP queue 3)."""
+def test_khmer_overlay_without_a_khmer_font(tmp_path):
+    """Khmer overlay text goes through the generators' first Khmer-capable
+    font, the procedural pseudo-glyphs where no system font draws Khmer, in
+    both packages: the overlay images are equal pixel for pixel; Latin text
+    uses the own font in both."""
+    from PIL import Image
+
     from kiri_tpu.renderer import DocumentRenderer as JRenderer
     from kiri_tpu_torch.renderer import DocumentRenderer
 
     ours, ref = DocumentRenderer(), JRenderer()
     assert ours._font_for("abc").getname() == ref._font_for("abc").getname()
-    if ours._find_khmer_font() is None:
-        assert ours._font_for("ក") is ours.font
-        assert type(ref._font_for("ក")).__name__ == "PseudoGlyphFont"
+    assert (type(ours._font_for("ក")).__name__
+            == type(ref._font_for("ក")).__name__)
+    page = np.full((60, 200), 255, np.uint8)
+    Image.fromarray(page).save(tmp_path / "page.png")
+    results = [{"box": [5, 5, 150, 24], "text": "កម្ពុជា abc",
+                "confidence": 0.95},
+               {"box": [5, 32, 150, 24], "text": "ភាសាខ្មែរ",
+                "confidence": 0.5}]
+    imgs = []
+    for name, r in (("j", ref), ("t", ours)):
+        out = tmp_path / f"{name}.png"
+        r.draw_results(str(tmp_path / "page.png"), results, str(out))
+        imgs.append(np.asarray(Image.open(out)))
+    assert np.array_equal(*imgs)
+    assert (imgs[0][:, 210:] < 128).any()

@@ -133,13 +133,27 @@ def test_train_detector_runs(tmp_path, detector):
                       "--device", "cpu"]) == 0
 
 
-def test_train_detector_ignores_generator_flags(capsys):
-    """The live generator's flags are accepted, named as ignored, and reach
-    no config; --data-yaml is still required."""
-    assert tcli.main(["train-detector", "--aug-weights", "rotated=3",
-                      "--scale-aug", "0.5", "--image-size", "640",
-                      "--device", "cpu"]) == 1
-    out, err = capsys.readouterr()
-    assert "--aug-weights, --scale-aug: the live generator's" in out
+def test_train_detector_ignores_generator_flags(tmp_path, capsys,
+                                               monkeypatch):
+    """With --data-yaml the live generator's flags are named as ignored (the
+    trainer reads the directory); without it they reach the live pool's
+    config, as in kiri_tpu."""
+    from kiri_tpu_torch.detect.craft import train as craft_train
+
+    seen = []
+    monkeypatch.setattr(craft_train, "train_craft",
+                        lambda tc, **kw: seen.append(tc))
+    flags = ["train-detector", "--detector", "craft", "--aug-weights",
+             "rotated=3", "--scale-aug", "0.5", "--image-size", "640",
+             "--pool-size", "32", "--device", "cpu"]
+    assert tcli.main([*flags, "--data-yaml", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "--pool-size, --aug-weights, --scale-aug: the live generator's" \
+        in out
     assert "--image-size" not in out
-    assert "--data-yaml is required" in err
+    assert seen[-1].data_dir == str(tmp_path)
+    assert tcli.main(flags) == 0
+    assert "ignored" not in capsys.readouterr().out
+    tc = seen[-1]
+    assert tc.data_dir is None and tc.pool_size == 32
+    assert tc.aug_weights == {"rotated": 3.0} and tc.scale_aug == 0.5

@@ -247,11 +247,55 @@ def test_train_craft_tracks_kiri_tpu(dataset, craft_grad, tmp_path):
                                    device="cpu").detect_lines(page), list)
 
 
-def test_live_generator_is_refused(tmp_path):
-    for fn, tc in ((train_db, DBTrainConfig(out_dir=str(tmp_path))),
-                   (train_craft, CRAFTTrainConfig(out_dir=str(tmp_path)))):
-        with pytest.raises(NotImplementedError, match="generators"):
-            fn(tc, verbose=False, device="cpu")
+def test_live_generator_is_refused(tmp_path, db_grad, craft_grad):
+    """The live document generator is no longer refused: train_db and
+    train_craft without a data_dir pre-generate a pool as kiri_tpu's
+    trainers do (conditions, and CRAFT's small-scale documents), draw the
+    first batch from it by the same seed: step 0's loss is the port's loss
+    on kiri_tpu's batch exactly, and kiri_tpu's within TOL_STEPS, the bound
+    of the trainers' histories above. (CRAFT's pages are 224 px: at 160 the
+    small-scale documents are too small for the sparse layout's margins.)"""
+    from kiri_tpu.detect.craft.train import make_batch as jcraft_batch
+    from kiri_tpu.detect.db.train import make_batch as jdb_batch
+
+    seed, bs, n = 3, 3, 2
+    for kind, size in (("db", SIZE), ("craft", 224)):
+        jgen = JD.DocumentGenerator(size, size, seed=seed, khmer_ratio=0.3)
+        kw = dict(steps=1, batch_size=bs, image_size=size, seed=seed,
+                  pool_size=bs * n, aug_conditions=0.5,
+                  out_dir=str(tmp_path / kind))
+        if kind == "db":
+            var = init_db_net(jax.random.PRNGKey(0))
+            pool = [jdb_batch(jgen, bs, size, 0.5) for _ in range(n)]
+            grad = db_grad
+            net = DBNet()
+            net.load_state_dict(state_dict_from_jax(flatten_params(var)))
+            tc, train = DBTrainConfig(**kw), train_db
+
+            def loss_of(n, b):
+                return db_loss(n, b, **_DB_KW)
+        else:
+            var = init_craft_net(jax.random.PRNGKey(0))
+            small = [JD.DocumentGenerator(round(size / f), round(size / f),
+                                          seed=seed + 17 * i,
+                                          fonts=jgen.fonts, khmer_ratio=0.3)
+                     for i, f in enumerate((1.5, 2.0), 1)]
+            pool = [jcraft_batch(jgen, bs, size, 0.5, None, 0.5, small)
+                    for _ in range(n)]
+            grad = craft_grad
+            net = CRAFTNet()
+            net.load_state_dict(state_dict_from_flat(flatten_params(var)))
+            tc, train = CRAFTTrainConfig(**kw, scale_aug=0.5), train_craft
+            loss_of = craft_loss
+        first = pool[int(np.random.default_rng(seed).integers(n))]
+        (jl, _), _ = grad(var["params"], _jnp(first))
+        with torch.no_grad():
+            mine = float(loss_of(net, {k: torch.from_numpy(v)
+                                       for k, v in first.items()})[0])
+        hist = []
+        train(tc, verbose=False, net=net, device="cpu", history=hist)
+        assert len(hist) == 1 and hist[0]["loss"] == mine, (kind, hist, mine)
+        assert abs(mine - float(jl)) <= TOL_STEPS * abs(float(jl)), kind
 
 
 def test_steps_run_without_tf32():
