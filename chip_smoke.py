@@ -137,7 +137,34 @@
    steps/s pooled and with ``pool_size=0`` and ``make_batch``'s share of
    a step, and pages/s of ``eval_condition``, each with the card's name
    and power limit;
-10. prints one throughput line per method, one line per streamed method with
+10. the model-files phase, against ``kiri_tpu``'s answers in
+   ``kiri_tpu_torch/assets/smoke_models.npz``
+   (``scripts/make_torch_smoke_models.py``), each device run with the
+   counters at 0: (a) ``models/model.safetensors`` written as an F16
+   ``.safetensors`` with its meta, an F32 one without, the reference's
+   ``{"config", "model"}`` ``.pt`` and a bare state-dict ``.pt``; each
+   through ``RecognizerEngine.from_checkpoint``: its config equal to
+   ``kiri_tpu``'s (the meta-less and ``.pt`` loads infer 4 heads for v13),
+   float32 "ctc" and "decoder" texts over the 64 smoke lines equal to
+   ``kiri_tpu``'s for that file and confidences within 1e-3, the F16 file in
+   bf16 within the CER gate; ``OCR(<the .pt>, preprocess="device")`` in
+   float32 "fast" on two pages (the preprocess kernel) against ``kiri_tpu``'s
+   stored results; (b) ``KiriOCR.from_checkpoint`` in float32: CTC logits of
+   8 lines at 48 x 320 within 1e-3 and its parameter count; (c) the PP-OCR
+   DB graph (MobileNetV3-large x0.5, DBFPN(96), the DB head), rebuilt from
+   its seed by ``kiri_tpu_torch.smoke.build_ppocr_det`` and held to the
+   stored SHA-256, through ``DBDetector(det.onnx)`` on three pages of three
+   canvas buckets: u16 maps within 8 counts, quads identical (the stored
+   maps keep more than 8 counts from the threshold), the batched path and
+   ``TextDetector``'s equal to per page, ``OCR(det_model_path=det.onnx)``'s
+   float32 "fast" pages equal to the stored ones; it prints the graph's
+   forward per canvas at batch 1 and 8 (host ms and the device's busy ms
+   under the profiler) with the peak memory; (d)
+   ``corpus_cluster_cer`` of the stored float32 texts equal to
+   ``kiri_tpu``'s, and the bf16 Khmer cluster and codepoint CER of "ctc",
+   "decoder" and "beam". The Hugging Face hub is not driven (the machine
+   has no network; only local paths are passed);
+11. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -2183,6 +2210,252 @@ def generators_phase(torch, np, drive, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _norm_cfg(d):
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+
+def _same_results(got, want):
+    """(lines compared, boxes identical, texts differing on identical boxes,
+    largest confidence difference there, every box within PAGE_BOX_TOL px
+    and the counts equal) of two runs' pages of result dicts."""
+    n = ident = 0
+    worst, bad, near = 0.0, [], True
+    for g, w in zip(got, want):
+        near &= len(g) == len(w)
+        n += len(w)
+        for r, s in zip(g, w):
+            near &= max(abs(a - b) for a, b in zip(r["box"], s["box"])) \
+                <= PAGE_BOX_TOL
+            if list(r["box"]) != list(s["box"]) or \
+                    r["line_number"] != s["line_number"]:
+                continue
+            ident += 1
+            worst = max(worst, abs(r["confidence"] - s["confidence"]))
+            if r["text"] != s["text"]:
+                bad.append((r["text"], s["text"]))
+    return n, ident, bad, worst, near
+
+
+def model_files_phase(torch, np, drive, card):
+    """The model files the port serves from, against kiri_tpu's answers in
+    ``smoke_models.npz``: (a) four other formats of the committed
+    recognizer through ``RecognizerEngine.from_checkpoint`` and ``OCR``;
+    (b) ``KiriOCR``; (c) the PP-OCR DB graph through the ONNX interpreter:
+    maps, quads, the batched path, pages, and the forward per canvas; (d)
+    Khmer cluster CER. Each device run with the counters at 0."""
+    from kiri_tpu_torch import smoke as S
+    from kiri_tpu_torch.checkpoints import find_vocab_file
+    from kiri_tpu_torch.config import CFG
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.detect.db import DBDetector
+    from kiri_tpu_torch.engine import RecognizerEngine
+    from kiri_tpu_torch.models.recognizer import KiriOCR
+    from kiri_tpu_torch.ops.preprocess import invert_if_dark, to_gray
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.tokenizer import CharTokenizer
+    from kiri_tpu_torch.utils.khmer import corpus_cluster_cer
+
+    import shutil
+
+    t_phase = time.perf_counter()
+    fx = S.load_smoke_models()
+    d, _ = S.load_smoke_lines()
+    imgs, widths = d["imgs"], d["widths"]
+    texts = [str(t) for t in d["texts"]]
+    is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
+    pages = [p["image"] for p in S.load_smoke_pages()["pages"]]
+    ckpt = REPO / "models" / "model.safetensors"
+    det_path = str(REPO / "models" / "detector.safetensors")
+    tmp = Path(tempfile.mkdtemp(prefix="kiri_models_"))
+    try:
+        # (a) Every format through RecognizerEngine.from_checkpoint.
+        files = S.write_model_formats(ckpt, tmp)
+        for fmt, path in files.items():
+            eng = RecognizerEngine.from_checkpoint(path, device="cuda")
+            check(_norm_cfg(eng.cfg.to_dict()) == _norm_cfg(fx["cfgs"][fmt]),
+                  f"models {fmt}: config equal to kiri_tpu's (ENC_HEADS "
+                  f"{eng.cfg.ENC_HEADS}, KHMER_VISUAL_ORDER "
+                  f"{eng.cfg.KHMER_VISUAL_ORDER}, {eng.cfg.COMPUTE_DTYPE})")
+            eng32 = RecognizerEngine(eng.model, eng.cfg.replace(
+                COMPUTE_DTYPE="float32"), eng.tok, device="cuda")
+            for m in ("ctc", "decoder"):
+                res = drive(f"models {fmt} f32 {m}",
+                            lambda: eng32.recognize_batch(imgs, m, widths),
+                            ("stem_fused_f32",))
+                want = [str(t) for t in fx[f"{fmt}_{m}_texts_f32"]]
+                diff = [i for i, ((t, _), w) in enumerate(zip(res, want))
+                        if t != w]
+                dconf = np.abs(np.asarray([c for _, c in res])
+                               - fx[f"{fmt}_{m}_conf_f32"]).max()
+                check(not diff and dconf <= TOL_CONF_F32,
+                      f"models {fmt} f32 {m}: {len(res) - len(diff)}/"
+                      f"{len(res)} texts equal kiri_tpu's for this file, max "
+                      f"|conf diff| {dconf:.2e} (tol {TOL_CONF_F32:g})"
+                      + (f"; first differences {diff[:3]}" if diff else ""))
+            if fmt == "f16_meta":
+                res = drive("models f16_meta bf16 ctc",
+                            lambda: eng.recognize_batch(imgs, "ctc", widths),
+                            ("stem_fused",))
+                hyp = [t for t, _ in res]
+                kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
+                en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh)
+                          if not k])
+                check(eng.dtype == torch.bfloat16 and kh <= CER_MAX
+                      and en <= CER_MAX,
+                      f"models f16_meta bf16 ctc: Khmer CER {kh:.4f}, "
+                      f"English CER {en:.4f} (max {CER_MAX})")
+            del eng, eng32
+        OCR._model_cache.clear()
+        ocr = OCR(files["pt_config"], det_model_path=det_path,
+                  decode_method="fast", use_fp16=False, preprocess="device",
+                  device="cuda")
+        got = drive("models pt_config OCR f32 fast preprocess=device",
+                    lambda: [ocr.process_document(pages[i])
+                             for i in S.PT_OCR_PAGES],
+                    ("stem_fused_f32", "preprocess_lines"))
+        n, ident, bad, worst, near = _same_results(got, fx["pt_ocr"])
+        check(near and ident > 0 and not bad and worst <= TOL_CONF_F32,
+              f"models pt_config OCR: {n} lines on {len(got)} pages, "
+              f"{ident} boxes identical to kiri_tpu's (every box within "
+              f"{PAGE_BOX_TOL} px: {near}), texts equal on all of them, max "
+              f"|conf diff| {worst:.2e}"
+              + (f"; differences {bad[:3]}" if bad else ""))
+        del ocr
+
+        # (b) KiriOCR on the committed checkpoint in float32.
+        meta = json.loads((REPO / "models" / "model_meta.json").read_text())
+        cfg32 = CFG.from_dict(meta["config"]).replace(
+            COMPUTE_DTYPE="float32")
+        kiri = KiriOCR.from_checkpoint(str(ckpt), cfg=cfg32, device="cuda")
+        x = np.ascontiguousarray(imgs[:S.KIRI_LINES, :, :S.KIRI_WIDTH])
+        logits = drive("models KiriOCR f32 ctc_logits(encode)",
+                       lambda: kiri.ctc_logits(kiri.encode(x)),
+                       ("stem_fused_f32",))
+        err = float(np.abs(logits.cpu().numpy()
+                           - fx["kiri_logits_f32"]).max())
+        check(err <= TOL_CONF_F32 and kiri.num_params() == int(
+            fx["kiri_num_params"]),
+              f"models KiriOCR: logits {tuple(logits.shape)} within "
+              f"{err:.2e} of kiri_tpu's (tol {TOL_CONF_F32:g}); "
+              f"num_params {kiri.num_params()} (kiri_tpu "
+              f"{int(fx['kiri_num_params'])})")
+        del kiri
+
+        # (c) The PP-OCR DB graph, rebuilt from its seed.
+        data = S.build_ppocr_det(seed=S.ONNX_SEED, conditioned=True,
+                                 head_gain=S.ONNX_HEAD_GAIN,
+                                 head_bias=S.ONNX_HEAD_BIAS)
+        sha = hashlib.sha256(data).hexdigest()
+        check(sha == str(fx["onnx_sha256"]),
+              f"models onnx: graph rebuilt ({len(data)} bytes) with sha256 "
+              f"{sha[:16]}... equal to the fixture's")
+        onnx_path = tmp / "det.onnx"
+        onnx_path.write_bytes(data)
+        det = DBDetector(str(onnx_path), device="cuda")
+        per_page = {}
+        for i in S.ONNX_PAGES:
+            canvas, (nh, nw), _ = det._resize_image(invert_if_dark(to_gray(
+                pages[i])))
+            wire = det.forward_wire(canvas[None]).cpu().numpy()[0]
+            dmap = np.abs(wire.astype(np.int64) - fx[f"onnx_map_{i}"])
+            check(wire.shape == fx[f"onnx_map_{i}"].shape
+                  and dmap.max() <= PAGE_MAP_TOL,
+                  f"models onnx page {i}: u16 map (canvas {canvas.shape}) "
+                  f"within {int(dmap.max())} counts of kiri_tpu's (tol "
+                  f"{PAGE_MAP_TOL}); {int((dmap > 0).sum())} of {dmap.size} "
+                  "values differ")
+            res = per_page[i] = det.detect_text(pages[i])
+            want = fx["onnx_quads"][str(i)]
+            margin = fx[f"onnx_margin_{i}"]
+            if margin[0] > PAGE_MAP_TOL and margin[1] > PAGE_MAP_TOL / 65535:
+                ok = len(res) == len(want) and all(
+                    q.tolist() == wq and abs(s - ws) <= PAGE_MAP_TOL / 65535
+                    for (q, s), (wq, ws) in zip(res, want))
+                rule = "identical"
+            else:
+                ok = len(res) == len(want) and all(
+                    np.abs(q - np.asarray(wq)).max() <= PAGE_BOX_TOL
+                    for (q, _), (wq, _) in zip(res, want))
+                rule = f"within {PAGE_BOX_TOL} px"
+            check(ok, f"models onnx page {i}: {len(res)} quads {rule} to "
+                      f"kiri_tpu's (stored margin {margin[0]:g} counts from "
+                      f"the threshold, {margin[1]:.2e} of a box score)")
+        batched = det.detect_text_batch([pages[i] for i in S.ONNX_PAGES])
+        check(all(len(b) == len(per_page[i]) and all(
+            np.array_equal(q, bq) and s == bs
+            for (q, s), (bq, bs) in zip(per_page[i], b))
+            for i, b in zip(S.ONNX_PAGES, batched)),
+              "models onnx: detect_text_batch equals the per-page results")
+        tdet = TextDetector("db", str(onnx_path), device="cuda")
+        objs = tdet.detect_lines_objects_batch([pages[i]
+                                                for i in S.ONNX_PAGES])
+        check(all([b.bbox for b in o] == tdet.detect_lines(pages[i])
+                  for i, o in zip(S.ONNX_PAGES, objs)),
+              "models onnx: TextDetector.detect_lines_objects_batch equals "
+              "the per-page lines")
+        del tdet
+        OCR._model_cache.clear()
+        ocr = OCR(str(ckpt), det_model_path=str(onnx_path),
+                  decode_method="fast", use_fp16=False, device="cuda")
+        got = drive("models onnx OCR f32 fast",
+                    lambda: [ocr.process_document(pages[i])
+                             for i in S.ONNX_OCR_PAGES], ("stem_fused_f32",))
+        n, ident, bad, worst, near = _same_results(got, fx["onnx_ocr"])
+        check(near and ident == n > 0 and not bad and worst <= TOL_CONF_F32,
+              f"models onnx OCR: {n} lines on {len(got)} pages, {ident} "
+              f"boxes identical to kiri_tpu's, texts equal on all, max "
+              f"|conf diff| {worst:.2e}"
+              + (f"; differences {bad[:3]}" if bad else ""))
+        del ocr
+        for i in S.ONNX_PAGES:
+            canvas, _, _ = det._resize_image(invert_if_dark(to_gray(
+                pages[i])))
+            for nb in (1, 8):
+                batch = np.repeat(canvas[None], nb, axis=0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                host, busy = host_and_device_ms(
+                    torch, lambda: det.forward_wire(batch).cpu())
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                print(f"onnx DB forward_wire {canvas.shape[0]}x"
+                      f"{canvas.shape[1]} batch {nb} (PP-OCR MobileNetV3 "
+                      f"x0.5 + DBFPN(96), float32, TF32 off; upload and "
+                      f"u16 map fetched): {host / nb:.3f} ms per canvas on "
+                      f"the host clock, device busy {busy / nb:.3f} ms per "
+                      f"canvas (profiler), peak {peak:.0f} MiB [{card}]",
+                      flush=True)
+        del det
+
+        # (d) Khmer cluster CER.
+        ours = corpus_cluster_cer(texts, [str(t) for t in
+                                          d["batch_texts_f32"]])
+        check(ours == float(fx["khmer_cluster_cer"]),
+              f"models khmer: corpus cluster CER of kiri_tpu's stored f32 "
+              f"ctc texts {ours!r} equals kiri_tpu's "
+              f"{float(fx['khmer_cluster_cer'])!r}")
+        eng = RecognizerEngine.from_checkpoint(str(ckpt), device="cuda")
+        kh_refs = [t for t, k in zip(texts, is_kh) if k]
+        for m in ("ctc", "decoder", "beam"):
+            res = drive(f"models bf16 {m} (cluster CER)",
+                        lambda: eng.recognize_batch(imgs, m, widths),
+                        ("stem_fused",))
+            hyp = [t for (t, _), k in zip(res, is_kh) if k]
+            cp = (sum(lev(unicodedata.normalize("NFC", r),
+                          unicodedata.normalize("NFC", h))
+                      for r, h in zip(kh_refs, hyp))
+                  / max(1, sum(len(unicodedata.normalize("NFC", r))
+                               for r in kh_refs)))
+            print(f"khmer bf16 {m}: cluster CER "
+                  f"{corpus_cluster_cer(kh_refs, hyp):.4f}, codepoint CER "
+                  f"{cp:.4f} (corpus, {len(kh_refs)} Khmer smoke lines)",
+                  flush=True)
+        del eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"model-files phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def _same_texts(got_pages, want_pages):
     """(lines, texts equal on identical boxes, boxes not identical, the
     differing texts) of two runs' [box, text] pages."""
@@ -2298,6 +2571,8 @@ def main() -> int:
                    card)
     generators_phase(torch, np, functools.partial(drive_run, counts, by_run),
                      card)
+    model_files_phase(torch, np, functools.partial(drive_run, counts, by_run),
+                      card)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

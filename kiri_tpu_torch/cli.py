@@ -84,8 +84,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="Path(s) to document image(s); multiple images are "
                         "recognized in one pooled pass")
     p.add_argument("--mode", choices=["lines", "words"], default="lines")
-    p.add_argument("--model", default="models/model.safetensors")
-    p.add_argument("--det-model", default=None)
+    p.add_argument("--model", default="models/model.safetensors",
+                   help="recognizer: .safetensors (with or without its "
+                        "_meta.json), .pt, or a hub repo id")
+    p.add_argument("--det-model", default=None,
+                   help="detector: .safetensors, a PP-OCR DB .onnx, or a "
+                        "hub repo id")
     p.add_argument("--det-method", choices=["db", "craft", "legacy"],
                    default="db")
     p.add_argument("--decode-method",

@@ -3,7 +3,8 @@
 the port's torch-named state dict. A numpy copy of
 ``kiri_tpu/utils/convert.py::to_torch_state_dict``; layouts: HWIO convs ->
 OIHW, [in, out] linears -> [out, in], q/k/v projections -> one fused
-``in_proj_weight`` [3D, D].
+``in_proj_weight`` [3D, D]. Also the shape rule that gives a meta-less
+checkpoint its config (``infer_cfg_from_state_dict``).
 """
 from __future__ import annotations
 
@@ -117,3 +118,41 @@ def craft_state_dict_from_jax(variables: Dict[str, Any]
     from .detect.craft.net import state_dict_from_flat
 
     return state_dict_from_flat(flatten_params(variables))
+
+
+def infer_cfg_from_state_dict(sd: Dict[str, Any], cfg):
+    """``cfg`` with the architecture read off a torch-named state dict's
+    shapes, for checkpoints without a meta (a copy of ``kiri_tpu``'s rule,
+    after the reference's ``kiri_ocr/core.py:319-403``). Heads: a head of
+    64, else of 32, else 8 heads; v13 (D 256, 8 heads) reads as 4."""
+    kw = {}
+    if "stem.net.9.weight" in sd:
+        kw["ENC_DIM"] = int(sd["stem.net.9.weight"].shape[0])
+    enc_layers = {int(k.split(".")[2]) for k in sd
+                  if k.startswith("enc.layers.")}
+    if enc_layers:
+        kw["ENC_LAYERS"] = max(enc_layers) + 1
+    dec_layers = {int(k.split(".")[2]) for k in sd
+                  if k.startswith("dec.layers.")}
+    if dec_layers:
+        kw["DEC_LAYERS"] = max(dec_layers) + 1
+    if "enc.layers.0.linear1.weight" in sd:
+        kw["ENC_FF"] = int(sd["enc.layers.0.linear1.weight"].shape[0])
+    if "dec_emb.weight" in sd:
+        kw["DEC_DIM"] = int(sd["dec_emb.weight"].shape[1])
+    if "dec.layers.0.linear1.weight" in sd:
+        kw["DEC_FF"] = int(sd["dec.layers.0.linear1.weight"].shape[0])
+
+    def _heads(key):
+        total = sd[key].shape[0] // 3
+        if total % 64 == 0:
+            return total // 64
+        if total % 32 == 0:
+            return total // 32
+        return 8
+
+    if "enc.layers.0.self_attn.in_proj_weight" in sd:
+        kw["ENC_HEADS"] = _heads("enc.layers.0.self_attn.in_proj_weight")
+    if "dec.layers.0.self_attn.in_proj_weight" in sd:
+        kw["DEC_HEADS"] = _heads("dec.layers.0.self_attn.in_proj_weight")
+    return cfg.replace(**kw)

@@ -15,11 +15,15 @@ stay on the detector for the croppers (``last_deskewed_image``,
 ``last_deskew_boxes``, ``last_deskew_angle``; ``last_batch_state`` per page
 of a batch).
 
-Unlike the JAX package it never falls back to another detector: a DB or
-CRAFT detector that fails to load or to run raises.
+A repo id (``"org/name"``) as ``model_path``, or no model file found on
+disk, is looked up on the Hugging Face hub as in the JAX package
+(``DEFAULT_HUB_REPO`` for the default model). Unlike the JAX package it
+never falls back to another detector: a DB or CRAFT model that is not
+found (on disk or on the hub), fails to load or fails to run raises.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -75,6 +79,9 @@ class TextDetector:
             return
         if model_path is None:
             model_path = self._find_default_model()
+        elif ("/" in str(model_path) and not os.path.exists(model_path)
+              and not str(model_path).startswith((".", "/"))):
+            model_path = self._download_from_hub(str(model_path)) or model_path
         if not (model_path and Path(model_path).exists()):
             raise FileNotFoundError(
                 f"{method.upper()} model not found: {model_path}")
@@ -87,16 +94,41 @@ class TextDetector:
             self.craft_detector = CRAFTDetector(self.model_path,
                                                 device=device)
 
+    #: The hub repo looked up when no local model file exists.
+    DEFAULT_HUB_REPO = "mrrtmob/kiri-ocr"
+
     def _find_default_model(self) -> Optional[str]:
         """The method's checkpoint (``detector.safetensors`` or
-        ``craft.safetensors``) in ./models, ., or the checkout's models/
-        (no download)."""
+        ``craft.safetensors``) in ./models, ., the package or the
+        checkout's models/, else from ``DEFAULT_HUB_REPO``."""
         fname = _MODEL_FILES[self.method]
-        repo_root = Path(__file__).resolve().parents[2]
-        for p in (Path("models") / fname, Path(fname),
-                  repo_root / "models" / fname):
+        pkg_dir = Path(__file__).resolve().parent
+        for p in (Path("models") / fname, Path(fname), pkg_dir / fname,
+                  pkg_dir.parents[1] / "models" / fname):
             if p.exists():
                 return str(p)
+        return self._download_from_hub(self.DEFAULT_HUB_REPO)
+
+    def _download_from_hub(self, repo_id: str) -> Optional[str]:
+        """The method's checkpoint from the hub repo ``repo_id``, tried as
+        ``detector/<f>``, ``<f>`` and ``models/<f>``; None when
+        ``huggingface_hub`` does not import or no file downloads."""
+        fname = _MODEL_FILES.get(self.method)
+        if fname is None:
+            return None
+        try:
+            from huggingface_hub import hf_hub_download
+        except Exception:
+            return None
+        for remote in (f"detector/{fname}", fname, f"models/{fname}"):
+            try:
+                local = hf_hub_download(repo_id=repo_id, filename=remote)
+                if local and os.path.exists(local):
+                    return local
+            except Exception:
+                continue
+        print(f"Warning: could not find a {self.method} detector model in "
+              f"HuggingFace repo: {repo_id}")
         return None
 
     @staticmethod

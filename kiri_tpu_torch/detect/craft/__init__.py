@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ... import native
-from ...checkpoints import read_safetensors, write_safetensors
+from ...checkpoints import write_safetensors
 from ...device import no_tf32, resolve_device
 from ...ops.imgproc import resize_u8
 from ...ops.preprocess import invert_if_dark, to_gray
@@ -115,9 +115,11 @@ def _det_boxes_core(textmap: np.ndarray, linkmap: np.ndarray,
 
 
 def load_craft_checkpoint(path) -> Dict[str, np.ndarray]:
-    """The JAX package's CRAFT checkpoint as flat numpy arrays
-    (``params.<layer>.<leaf>``)."""
-    return read_safetensors(path)
+    """The JAX package's CRAFT checkpoint as flat float32 numpy arrays
+    (``params.<layer>.<leaf>``; any dtype the reader takes is cast)."""
+    from ..db import load_db_checkpoint
+
+    return load_db_checkpoint(path)
 
 
 def save_craft_checkpoint(path, net: CRAFTNet) -> None:

@@ -10,6 +10,13 @@
 
 The u16 quantization is kept from the JAX package (where it halved the
 download): the boxes are computed from the quantized map.
+
+A ``.onnx`` model (the reference's default detector is the PP-OCR DB graph)
+runs through the port's graph interpreter (``utils/onnx_import.py``) in
+place of ``DBNet``, as in the JAX package: the gray canvas scaled to
+[0, 1], replicated to three channels and normalized with ImageNet's mean
+and std, the graph's first output taken as the probability map; everything
+after the map is shared.
 """
 from __future__ import annotations
 
@@ -28,6 +35,10 @@ from ...ops.preprocess import invert_if_dark, to_gray
 from ...utils.imageio import imread_bgr
 from .net import DBNet, build_db_net, flat_from_state_dict
 
+#: ImageNet normalization of the PP-OCR graphs' RGB input.
+_ONNX_MEAN = (0.485, 0.456, 0.406)
+_ONNX_STD = (0.229, 0.224, 0.225)
+
 #: Canvas size buckets (multiples of 32).
 _SIZE_BUCKETS = (320, 448, 576, 704, 832, 960)
 
@@ -40,9 +51,10 @@ def _bucket(v: int) -> int:
 
 
 def load_db_checkpoint(path) -> Dict[str, np.ndarray]:
-    """The JAX package's DB checkpoint as flat numpy arrays
-    (``params.<layer>.<leaf>``)."""
-    return read_safetensors(path)
+    """The JAX package's DB checkpoint as flat float32 numpy arrays
+    (``params.<layer>.<leaf>``; any dtype the reader takes is cast)."""
+    return {k: v.astype(np.float32)
+            for k, v in read_safetensors(path).items()}
 
 
 def save_db_checkpoint(path, net: DBNet) -> None:
@@ -104,15 +116,23 @@ class DBDetector:
             raise ValueError(f"det_map_downsample must be a divisor of 32, "
                              f"got {det_map_downsample}")
         self.device = resolve_device(device)
+        #: The imported graph of a ``.onnx`` model (else None, and ``net``
+        #: is the native DB net).
+        self.onnx = None
+        self.net: Optional[DBNet] = None
+        if variables is None and model_path and str(model_path).endswith(
+                ".onnx"):
+            if not Path(model_path).exists():
+                raise FileNotFoundError(f"DB model not found at {model_path}")
+            from ...utils.onnx_import import import_onnx
+
+            self.onnx = import_onnx(model_path).to(self.device)
+            return
         if variables is None:
-            if model_path and str(model_path).endswith(".onnx"):
-                raise NotImplementedError(
-                    "ONNX detector graphs are not ported yet (the ONNX "
-                    "importer, ROADMAP queue 1, tail)")
             if not (model_path and Path(model_path).exists()):
                 raise FileNotFoundError(f"DB model not found at {model_path}")
             variables = load_db_checkpoint(model_path)
-        self.net: DBNet = build_db_net(variables).to(self.device)
+        self.net = build_db_net(variables).to(self.device)
 
     # ------------------------------------------------------------ preprocess
     def _resize_image(self, img: np.ndarray):
@@ -150,9 +170,20 @@ class DBDetector:
         """u8 canvases [B, H, W] -> the u16 map values [B, H/ds, W/ds] on
         the device (int32: the values of round(prob * 65535))."""
         x = torch.from_numpy(np.ascontiguousarray(canvas_u8)).to(self.device)
-        x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
         with no_tf32():
-            prob = self.net(x[:, None])
+            if self.onnx is not None:
+                x = x.to(torch.float32)[:, None] / 255.0
+                mean, std = (torch.tensor(v, dtype=torch.float32,
+                                          device=self.device)[None, :, None,
+                                                              None]
+                             for v in (_ONNX_MEAN, _ONNX_STD))
+                out = self.onnx.apply(self.onnx.params, (x - mean) / std)
+                if isinstance(out, tuple):
+                    out = out[0]
+                prob = out.reshape((x.shape[0],) + tuple(out.shape[-2:]))
+            else:
+                x = (x.to(torch.float32) / 255.0 - 0.5) / 0.5
+                prob = self.net(x[:, None])
         ds = self.det_map_downsample
         if ds > 1:
             prob = F.avg_pool2d(prob[:, None], ds)[:, 0]

@@ -123,9 +123,10 @@ class RecognizerEngine:
     @classmethod
     def from_checkpoint(cls, path: str, device=None, upload_bits: int = 8
                         ) -> "RecognizerEngine":
-        """Engine over a checkpoint, its meta's config and the vocab beside
-        it."""
-        model, cfg, meta = load_checkpoint(path, device)
+        """Engine over a recognizer file in any format that
+        ``checkpoints.load_checkpoint`` reads, its config and the vocab
+        beside it."""
+        model, cfg, meta = load_checkpoint(path, device=device)
         vocab = find_vocab_file(meta.get("vocab_path", ""), path)
         if vocab is None:
             raise FileNotFoundError(f"no vocab file found near {path}")

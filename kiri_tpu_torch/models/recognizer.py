@@ -170,9 +170,14 @@ def _pos_enc_2d(h: int, w: int, c: int) -> torch.Tensor:
 
 class Recognizer(nn.Module):
     """``vocab_size`` counts the tokenizer's characters (with <unk>): the
-    CTC head has vocab_size + 2 classes and the decoder vocab_size + 3."""
+    CTC head has vocab_size + 2 classes and the decoder vocab_size + 3.
+    ``ctc_head`` and ``lm_head`` (None: ``cfg.USE_CTC``, ``cfg.USE_LM``)
+    say whether the model holds those heads; the LM head is used only
+    where it exists and ``cfg.USE_LM`` is set."""
 
-    def __init__(self, cfg, vocab_size: int, use_dec_pos_enc: bool = True):
+    def __init__(self, cfg, vocab_size: int, use_dec_pos_enc: bool = True,
+                 ctc_head: Optional[bool] = None,
+                 lm_head: Optional[bool] = None):
         super().__init__()
         d, dd = cfg.ENC_DIM, cfg.DEC_DIM
         self.enc_heads = cfg.ENC_HEADS
@@ -185,7 +190,7 @@ class Recognizer(nn.Module):
         self.enc = Stack(EncoderLayer(d, cfg.ENC_FF)
                          for _ in range(cfg.ENC_LAYERS))
         self.enc_ln = nn.LayerNorm(d)
-        if cfg.USE_CTC:
+        if cfg.USE_CTC if ctc_head is None else ctc_head:
             # Index 1 is the training-time Dropout, which holds no weights.
             self.ctc_head = nn.Sequential(nn.LayerNorm(d),
                                           nn.Dropout(cfg.DROPOUT),
@@ -198,7 +203,7 @@ class Recognizer(nn.Module):
                          for _ in range(cfg.DEC_LAYERS))
         self.dec_ln = nn.LayerNorm(dd)
         self.dec_head = nn.Linear(dd, vocab_size + 3)
-        if cfg.USE_LM:
+        if cfg.USE_LM if lm_head is None else lm_head:
             self.lm_head = nn.Linear(dd, vocab_size + 3)
 
     def encode(self, images: torch.Tensor, dtype: torch.dtype,
@@ -383,3 +388,81 @@ class Recognizer(nn.Module):
             x = L.decoder_step_layer(layer, x, i, cache, pos, ck, cv,
                                      self.dec_heads)
         return self._heads(w, x[:, 0])
+
+
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def num_params(model: nn.Module) -> int:
+    """Trainable values: what ``kiri_tpu`` counts as the leaves of
+    ``variables["params"]`` (BatchNorm statistics and the decoder's
+    position table, which are buffers, left out)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+class KiriOCR:
+    """Object facade over ``Recognizer`` for users of the reference's model
+    class (``KiriOCR(cfg, tok)`` with ``.encode(images)``), as in
+    ``kiri_tpu``. ``variables`` takes ``kiri_tpu``'s parameters as numpy
+    (``{"params", "batch_stats"}``) and carries them across; without it the
+    model starts from ``Recognizer.init_weights`` on a ``torch.Generator``
+    seeded with ``seed``, whose values differ from ``kiri_tpu``'s JAX
+    initializer. ``device=None`` means the card."""
+
+    def __init__(self, cfg, tok, use_dec_pos_enc: bool = True,
+                 variables=None, seed: int = 0, device=None):
+        from ..checkpoints import build_model
+        from ..convert import state_dict_from_jax
+        from ..device import resolve_device
+
+        self.cfg = cfg
+        self.tok = tok
+        self.use_dec_pos_enc = use_dec_pos_enc
+        self.device = resolve_device(device)
+        if variables is not None:
+            model = build_model(state_dict_from_jax(
+                variables, cfg.MAX_DEC_LEN, use_dec_pos_enc), cfg)
+        else:
+            model = Recognizer(cfg, tok.vocab_size, use_dec_pos_enc
+                               ).init_weights(torch.Generator().manual_seed(
+                                   seed))
+        self.model = model.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg=None,
+                        vocab_path: Optional[str] = None,
+                        device=None) -> "KiriOCR":
+        """Weights and config from a recognizer file in any format that
+        ``checkpoints.load_checkpoint`` reads, the vocab from
+        ``vocab_path`` or beside the file."""
+        from ..checkpoints import find_vocab_file, load_checkpoint
+        from ..tokenizer import CharTokenizer
+
+        model, cfg, meta = load_checkpoint(path, cfg, device)
+        vp = vocab_path or find_vocab_file(meta.get("vocab_path", ""), path)
+        if not vp:
+            raise FileNotFoundError(f"No vocab file found near {path}")
+        self = cls.__new__(cls)
+        self.cfg, self.tok = cfg, CharTokenizer(vp, cfg)
+        self.use_dec_pos_enc = hasattr(model, "dec_pos_enc")
+        self.device = next(model.parameters()).device
+        self.model = model.eval()
+        return self
+
+    @torch.inference_mode()
+    def encode(self, images_u8) -> torch.Tensor:
+        """u8 [B, H, W] (numpy or torch) -> encoder memory [B, T, D] in the
+        config's compute dtype, through the stem kernels."""
+        x = torch.as_tensor(images_u8).to(self.device)
+        return self.model.encode(x, _COMPUTE_DTYPES[self.cfg.COMPUTE_DTYPE])
+
+    @torch.inference_mode()
+    def ctc_logits(self, mem: torch.Tensor) -> torch.Tensor:
+        return self.model.ctc_logits(mem)
+
+    @torch.inference_mode()
+    def mem_project(self, mem: torch.Tensor) -> torch.Tensor:
+        return self.model.mem_project(mem)
+
+    def num_params(self) -> int:
+        return num_params(self.model)

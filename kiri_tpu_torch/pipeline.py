@@ -10,7 +10,7 @@ means the card. What differs:
   in ``process_documents``, to per-page detection; an unknown
   ``det_method`` raises ValueError (the JAX package runs the classic-CV
   detector for it);
-- the class-level model cache is keyed on the compute dtype and the device
+- the class-level model cache is keyed on ``use_fp16`` and the device
   too, so ``OCR(use_fp16=False)`` after ``OCR(use_fp16=True)`` on one
   checkpoint gets a float32 engine;
 - a page is a u8 array or a path; PNG files are read by the port's own
@@ -32,8 +32,7 @@ from typing import Dict, Generator, List, Optional, Tuple
 
 import numpy as np
 
-from .checkpoints import build_model, find_vocab_file, read_meta, \
-    read_safetensors
+from .checkpoints import build_model, find_vocab_file, read_checkpoint
 from .config import CFG
 from .device import resolve_device
 from .engine import RecognizerEngine
@@ -160,8 +159,10 @@ class OCR:
         return aliases[method]
 
     def _resolve_model_path(self, model_path: str) -> str:
-        """The path itself, else the file name under the checkout's
-        models/ (no download)."""
+        """The path itself, else the file name under the package or the
+        checkout's models/, else for a repo id ("org/name", no suffix) the
+        file downloaded from the Hugging Face hub; the path as given when
+        none of these exists."""
         model_file = Path(model_path)
         if model_file.exists():
             return str(model_file)
@@ -170,17 +171,47 @@ class OCR:
                           pkg_dir.parent / "models" / model_file.name):
             if candidate.exists():
                 return str(candidate)
+        if "/" in model_path and not model_file.suffix:
+            downloaded = self._download_from_huggingface(model_path)
+            if downloaded:
+                return downloaded
         return model_path
+
+    def _download_from_huggingface(self, repo_id: str) -> Optional[str]:
+        """``model.safetensors``, else ``model.pt``, of ``repo_id`` from the
+        hub, with its meta, vocab and config files beside it (each best
+        effort). The local path, or None when ``huggingface_hub`` does not
+        import or nothing downloads."""
+        try:
+            from huggingface_hub import hf_hub_download
+        except Exception:
+            return None
+        try:
+            local = None
+            for fname in ("model.safetensors", "model.pt"):
+                try:
+                    local = hf_hub_download(repo_id=repo_id, filename=fname)
+                    break
+                except Exception:
+                    continue
+            if local is None:
+                return None
+            for extra in ("model_meta.json", "vocab.json", "vocab_auto.json",
+                          "vocab_char.json", "config.json"):
+                try:
+                    hf_hub_download(repo_id=repo_id, filename=extra)
+                except Exception:
+                    pass
+            return local
+        except Exception as e:
+            if self.verbose:
+                print(f"HF download failed for {repo_id}: {e}")
+            return None
 
     # --------------------------------------------------------- model loading
     def _load_model(self, model_path: str) -> None:
-        cfg, meta = read_meta(model_path)
-        if self.use_fp16 is not None:
-            cfg = cfg.replace(USE_FP16=self.use_fp16,
-                              COMPUTE_DTYPE="bfloat16" if self.use_fp16
-                              else "float32")
         cache_key = (str(model_path), str(self.device), self.upload_bits,
-                     cfg.COMPUTE_DTYPE)
+                     self.use_fp16)
         cached = OCR._model_cache.get(cache_key)
         if cached is not None:
             if self.verbose:
@@ -190,15 +221,19 @@ class OCR:
             return
         if self.verbose:
             print(f"📦 Loading OCR model from {model_path}...")
+        sd, cfg, meta = read_checkpoint(model_path)
+        if self.use_fp16 is not None:
+            cfg = cfg.replace(USE_FP16=self.use_fp16,
+                              COMPUTE_DTYPE="bfloat16" if self.use_fp16
+                              else "float32")
         self.cfg = cfg
         vocab_path = find_vocab_file(meta.get("vocab_path", ""), model_path)
         if not vocab_path:
             raise FileNotFoundError(
                 f"Could not find vocabulary file. Expected near: {model_path}")
         self.tokenizer = CharTokenizer(vocab_path, cfg)
-        model = build_model(read_safetensors(model_path), cfg)
-        self.engine = RecognizerEngine(model, cfg, self.tokenizer,
-                                       device=self.device,
+        self.engine = RecognizerEngine(build_model(sd, cfg), cfg,
+                                       self.tokenizer, device=self.device,
                                        upload_bits=self.upload_bits)
         if self.verbose:
             print(f"  ✓ Loaded (Vocab: {self.tokenizer.vocab_size} chars)")

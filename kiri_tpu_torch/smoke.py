@@ -17,14 +17,24 @@ renderer:
   of the JAX package's generated lines, documents under every condition, a
   ``generate-detector`` directory, the detector trainers' live batches,
   their step-0 losses and its ``eval_condition`` rows, all drawn with the
-  pseudo-glyph pool.
+  pseudo-glyph pool;
+- ``assets/smoke_models.npz`` (``scripts/make_torch_smoke_models.py``): the
+  JAX package's answers for four other formats of the committed recognizer
+  (F16 ``.safetensors`` with its meta, F32 without one, both ``.pt``
+  forms), its ``KiriOCR`` logits and parameter count, its maps, boxes and
+  texts with the PP-OCR DB graph that ``build_ppocr_det`` writes, and its
+  Khmer cluster CER of the smoke lines.
+
+``build_ppocr_det`` writes that graph (MobileNetV3-large x0.5, DBFPN(96),
+the DB head) from a seed, byte for byte as the JAX package's test builder
+does.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +42,8 @@ SMOKE_LINES = Path(__file__).resolve().parent / "assets" / "smoke_lines.npz"
 SMOKE_PAGES = Path(__file__).resolve().parent / "assets" / "smoke_pages.npz"
 SMOKE_TRAIN = Path(__file__).resolve().parent / "assets" / "smoke_train.npz"
 SMOKE_GEN = Path(__file__).resolve().parent / "assets" / "smoke_gen.npz"
+SMOKE_MODELS = (Path(__file__).resolve().parent / "assets"
+                / "smoke_models.npz")
 #: What the generators fixture was made with (scripts/make_torch_smoke_gen.py).
 GEN_SEED, GEN_LINES, GEN_DOC_SIZE = 42, 64, 640
 GEN_DOC_SIZES = (18, 22, 26, 30, 34)
@@ -273,3 +285,241 @@ def load_smoke_gen() -> Dict:
         data[k] = str(data[k])
     data["lines_digests"] = [str(x) for x in data["lines_digests"]]
     return data
+
+
+#: What the model-files fixture was made with
+#: (scripts/make_torch_smoke_models.py): the recognizer formats, the lines
+#: of the KiriOCR check, and the PP-OCR graph with the pages it ran on.
+MODEL_FORMATS = ("f16_meta", "f32_nometa", "pt_config", "pt_bare")
+KIRI_LINES, KIRI_WIDTH = 8, 320
+ONNX_SEED, ONNX_HEAD_GAIN, ONNX_HEAD_BIAS = 3, 0.25, -7.6
+ONNX_PAGES = (0, 3, 5)          # canvases 704 x 704, 704 x 576, 960 x 960
+ONNX_OCR_PAGES = (0, 3)
+PT_OCR_PAGES = (0, 3)
+
+
+def load_smoke_models() -> Dict:
+    """Every array of ``smoke_models.npz``, with its JSON fields
+    (``cfgs``, ``onnx_ocr``, ``pt_ocr``, ``versions``) decoded."""
+    with np.load(SMOKE_MODELS) as f:
+        d = {k: f[k] for k in f.files}
+    for k in ("cfgs", "onnx_ocr", "pt_ocr", "onnx_quads", "versions"):
+        d[k] = json.loads(str(d[k]))
+    return d
+
+
+def write_model_formats(src, out_dir) -> Dict[str, str]:
+    """The recognizer ``src`` (a ``.safetensors`` with its meta) in four
+    other formats, each in a directory of its own under ``out_dir`` with
+    ``src``'s ``vocab.json`` beside it: ``f16_meta`` (every float tensor
+    F16, the meta copied), ``f32_nometa`` (the F32 tensors, no meta),
+    ``pt_config`` (``torch.save`` of the reference's ``{"config", "model",
+    "vocab_path", "epoch", "step"}``) and ``pt_bare`` (a bare state dict).
+    Returns each format's file."""
+    import shutil
+
+    import torch
+
+    from .checkpoints import read_safetensors, write_safetensors
+
+    src = Path(src)
+    sd = read_safetensors(src)
+    meta = json.loads(Path(str(src)[: -len(".safetensors")]
+                           + "_meta.json").read_text())
+    out = {}
+    for fmt in MODEL_FORMATS:
+        d = Path(out_dir) / fmt
+        d.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src.parent / "vocab.json", d / "vocab.json")
+        if fmt == "f16_meta":
+            out[fmt] = write_safetensors(d / "model.safetensors", {
+                k: v.astype(np.float16) if v.dtype == np.float32 else v
+                for k, v in sd.items()})
+            (d / "model_meta.json").write_text(json.dumps(
+                {**meta, "vocab_path": "vocab.json"}, indent=2))
+        elif fmt == "f32_nometa":
+            out[fmt] = write_safetensors(d / "model.safetensors", sd)
+        else:
+            state = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+            obj = (state if fmt == "pt_bare" else
+                   {"config": meta["config"], "model": state,
+                    "vocab_path": "vocab.json", "epoch": meta["epoch"],
+                    "step": meta["step"]})
+            torch.save(obj, str(d / "model.pt"))
+            out[fmt] = str(d / "model.pt")
+    return out
+
+
+# ---------------------------------------------------- PP-OCR DB det graph
+def _make_divisible(v: float, divisor: int = 8) -> int:
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+#: MobileNetV3-large blocks: (kernel, expansion, out, SE, activation, stride).
+_MNV3_LARGE = [
+    (3, 16, 16, False, "relu", 1), (3, 64, 24, False, "relu", 2),
+    (3, 72, 24, False, "relu", 1), (5, 72, 40, True, "relu", 2),
+    (5, 120, 40, True, "relu", 1), (5, 120, 40, True, "relu", 1),
+    (3, 240, 80, False, "hardswish", 2), (3, 200, 80, False, "hardswish", 1),
+    (3, 184, 80, False, "hardswish", 1), (3, 184, 80, False, "hardswish", 1),
+    (3, 480, 112, True, "hardswish", 1), (3, 672, 112, True, "hardswish", 1),
+    (5, 672, 160, True, "hardswish", 2), (5, 960, 160, True, "hardswish", 1),
+    (5, 960, 160, True, "hardswish", 1),
+]
+
+
+class _DetGraph:
+    """Nodes and initializers of the graph, drawn from one generator."""
+
+    def __init__(self, seed: int, pb, conditioned: bool):
+        self.rng = np.random.default_rng(seed)
+        self.pb = pb
+        self.conditioned = conditioned
+        self.nodes: list = []
+        self.inits: dict = {}
+        self.n = 0
+
+    def name(self, tag: str) -> str:
+        self.n += 1
+        return f"{tag}_{self.n}"
+
+    def emit(self, op: str, ins, **attrs) -> str:
+        out = self.name(op.lower())
+        self.nodes.append(self.pb.write_node(op, list(ins), [out], name=out,
+                                             **attrs))
+        return out
+
+    def weight(self, shape, fan_in: int = 0) -> str:
+        """Standard normal draws times 0.25, or times 1 / sqrt(fan_in) for
+        a weight of ``fan_in`` inputs when ``conditioned``."""
+        name = self.name("w")
+        scale = (fan_in ** -0.5 if self.conditioned and fan_in else 0.25)
+        self.inits[name] = (self.rng.standard_normal(shape) * scale
+                            ).astype(np.float32)
+        return name
+
+    def conv_bn(self, x, cin, cout, k, stride, act, groups=1):
+        """Conv (no bias) + BatchNormalization + activation."""
+        w = self.weight((cout, cin // groups, k, k), cin // groups * k * k)
+        y = self.emit("Conv", [x, w], kernel_shape=[k, k],
+                      strides=[stride, stride], pads=[(k - 1) // 2] * 4,
+                      group=groups)
+        names = [self.name(t) for t in ("bn_s", "bn_b", "bn_m", "bn_v")]
+        r = self.rng
+        self.inits[names[0]] = (np.abs(r.standard_normal(cout)) + 0.5
+                                ).astype(np.float32)
+        self.inits[names[1]] = r.standard_normal(cout).astype(np.float32)
+        self.inits[names[2]] = (r.standard_normal(cout) * 0.1
+                                ).astype(np.float32)
+        self.inits[names[3]] = (np.abs(r.standard_normal(cout)) + 0.5
+                                ).astype(np.float32)
+        y = self.emit("BatchNormalization", [y] + names)
+        if act == "relu":
+            y = self.emit("Relu", [y])
+        elif act == "hardswish":
+            y = self.emit("HardSwish", [y])
+        return y
+
+    def se(self, x, c):
+        """Squeeze-excite with Paddle's hard sigmoid (slope 0.2)."""
+        mid = _make_divisible(c // 4)
+        g = self.emit("GlobalAveragePool", [x])
+        w1, b1 = self.weight((mid, c, 1, 1), c), self.weight((mid,))
+        s1 = self.emit("Relu", [self.emit("Conv", [g, w1, b1],
+                                          kernel_shape=[1, 1])])
+        w2, b2 = self.weight((c, mid, 1, 1), mid), self.weight((c,))
+        s2 = self.emit("Conv", [s1, w2, b2], kernel_shape=[1, 1])
+        gate = self.emit("HardSigmoid", [s2], alpha=0.2, beta=0.5)
+        return self.emit("Mul", [x, gate])
+
+    def residual_unit(self, x, cin, mid, cout, k, stride, use_se, act):
+        y = self.conv_bn(x, cin, mid, 1, 1, act)
+        y = self.conv_bn(y, mid, mid, k, stride, act, groups=mid)
+        if use_se:
+            y = self.se(y, mid)
+        y = self.conv_bn(y, mid, cout, 1, 1, None)
+        if stride == 1 and cin == cout:
+            y = self.emit("Add", [x, y])
+        return y
+
+    def upsample(self, x, factor):
+        """Resize nearest + asymmetric, the exporter's FPN upsample."""
+        sc, roi = self.name("scales"), self.name("roi")
+        self.inits[sc] = np.array([1, 1, factor, factor], np.float32)
+        self.inits[roi] = np.zeros((0,), np.float32)
+        return self.emit("Resize", [x, roi, sc], mode="nearest",
+                         coordinate_transformation_mode="asymmetric",
+                         nearest_mode="floor")
+
+
+def build_ppocr_det(seed: int = 3, scale: float = 0.5, neck_ch: int = 96,
+                    head_bias: Optional[float] = None,
+                    conditioned: bool = False, head_gain: float = 1.0,
+                    pb=None) -> bytes:
+    """The PP-OCR DB det graph's ONNX bytes: MobileNetV3-large (``scale``),
+    DBFPN(``neck_ch``) and the DB head (conv-BN-ReLU, two stride-2
+    ConvTransposes, sigmoid), random weights drawn from ``seed``. With
+    ``head_bias`` the last ConvTranspose's bias is that value instead of
+    its draw, and ``head_gain`` scales its weights. ``conditioned`` draws
+    the convolutions' weights at 1 / sqrt(fan in) instead of 0.25 and makes
+    each 2 x 2 kernel of the head's ConvTransposes one value (its first
+    draw), so that the maps of the deep random net stay unsaturated and
+    hold 4 x 4 blocks, which the DB geometry turns into boxes; the default
+    is the JAX package's test graph. ``pb`` is the wire writer (the port's
+    ``onnx_pb`` by default; the fixture script passes the JAX
+    package's)."""
+    if pb is None:
+        from .utils import onnx_pb as pb
+    b = _DetGraph(seed, pb, conditioned)
+    cin = _make_divisible(16 * scale)
+    y = b.conv_bn("x", 3, cin, 3, 2, "hardswish")
+    feats = []
+    for i, (k, exp, out, use_se, act, stride) in enumerate(_MNV3_LARGE):
+        mid = _make_divisible(exp * scale)
+        cout = _make_divisible(out * scale)
+        if stride == 2 and i > 1:       # taps C2..C4 at /4, /8, /16
+            feats.append((y, cin))
+        y = b.residual_unit(y, cin, mid, cout, k, stride, use_se, act)
+        cin = cout
+    last = _make_divisible(960 * scale)
+    feats.append((b.conv_bn(y, cin, last, 1, 1, "hardswish"), last))
+
+    ins = [b.emit("Conv", [f, b.weight((neck_ch, c, 1, 1), c)],
+                  kernel_shape=[1, 1]) for f, c in feats]
+    outs = [ins[3]]
+    for i in (2, 1, 0):                 # top-down pathway
+        outs.append(b.emit("Add", [ins[i], b.upsample(outs[-1], 2)]))
+    ps = []
+    for j, o in enumerate(outs):        # /32 /16 /8 /4 -> all at /4
+        p = b.emit("Conv", [o, b.weight((neck_ch // 4, neck_ch, 3, 3),
+                                        9 * neck_ch)],
+                   kernel_shape=[3, 3], pads=[1] * 4)
+        ps.append(b.upsample(p, 2 ** (3 - j)) if j < 3 else p)
+    fuse = b.emit("Concat", ps, axis=1)
+
+    c4 = neck_ch // 4
+    y = b.conv_bn(fuse, neck_ch, c4, 3, 1, "relu")
+    for stage in range(2):
+        cout = 1 if stage == 1 else c4
+        wt, bt = b.weight((c4, cout, 2, 2), c4), b.weight((cout,))
+        if conditioned:
+            b.inits[wt] = np.ascontiguousarray(np.broadcast_to(
+                b.inits[wt][:, :, :1, :1], (c4, cout, 2, 2)))
+        if stage == 1:
+            b.inits[wt] = (b.inits[wt] * np.float32(head_gain)).astype(
+                np.float32)
+            if head_bias is not None:
+                b.inits[bt] = np.full((cout,), head_bias, np.float32)
+        y = b.emit("ConvTranspose", [y, wt, bt], kernel_shape=[2, 2],
+                   strides=[2, 2])
+        if stage == 0:
+            names = [b.name(t) for t in ("hbn_s", "hbn_b", "hbn_m", "hbn_v")]
+            for nm, v in zip(names, (1.0, 0.0, 0.0, 1.0)):
+                b.inits[nm] = np.full(c4, v, np.float32)
+            y = b.emit("Relu", [b.emit("BatchNormalization", [y] + names)])
+    prob = b.emit("Sigmoid", [y])
+    return pb.write_model(b.nodes, b.inits, [("x", [None, 3, None, None])],
+                          [(prob, [None, 1, None, None])], opset=13)

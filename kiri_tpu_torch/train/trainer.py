@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..checkpoints import read_safetensors
+from ..checkpoints import load_state, read_checkpoint
 from ..config import CFG
 from ..device import no_tf32, resolve_device
 from ..models.layers import wide
@@ -445,10 +445,11 @@ class Trainer:
                         opt_state=self.opt_state())
 
     def load_weights(self, path) -> None:
-        """Copy a checkpoint's tensors into the model, in place."""
-        sd = read_safetensors(path)
-        self.model.load_state_dict({k: torch.from_numpy(v)
-                                    for k, v in sd.items()}, strict=True)
+        """Copy a recognizer file's tensors (any format of
+        ``checkpoints.load_checkpoint``, read over this trainer's config)
+        into the model, in place."""
+        sd, _, _ = read_checkpoint(path, self.cfg)
+        load_state(self.model, sd)
 
     def resume(self, path) -> bool:
         """Weights, counters, AdamW moments (where the file beside it holds

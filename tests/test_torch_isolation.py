@@ -1,6 +1,7 @@
 """kiri_tpu_torch stands alone: it imports neither JAX nor the JAX package
-(nor safetensors, cv2 or PIL, which the GPU machine lacks), and its entry
-points refuse to fall back to the CPU when no card is present."""
+(nor safetensors, cv2, PIL, yaml, onnx or onnxruntime, which the GPU
+machine lacks), and its entry points refuse to fall back to the CPU when no card is
+present."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +15,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kiri_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "kiri_tpu", "safetensors", "cv2", "PIL", "flax",
-             "optax"}
+             "optax", "onnx", "onnxruntime", "yaml"}
 
 
 def _port_modules():
@@ -104,3 +105,37 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
                    (train_craft, CRAFTTrainConfig(data_dir=str(tmp_path)))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(tc, verbose=False)
+
+
+def test_model_file_modules_are_covered():
+    """The model-files slice's modules are among those imported above, and
+    ``huggingface_hub`` is imported only inside the hub functions."""
+    mods = set(_port_modules())
+    assert {"kiri_tpu_torch.utils.khmer", "kiri_tpu_torch.utils.onnx_pb",
+            "kiri_tpu_torch.utils.onnx_import"} <= mods
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any(str(n).startswith("huggingface_hub")
+                               for n in names), path
+
+
+def test_onnx_and_kiriocr_entry_points_refuse_cpu_fallback(monkeypatch,
+                                                           tmp_path):
+    """A ``.onnx`` DB detector and ``KiriOCR`` with no device mean the
+    card."""
+    from kiri_tpu_torch.detect.db import DBDetector
+    from kiri_tpu_torch.models.recognizer import KiriOCR
+    from kiri_tpu_torch.smoke import build_ppocr_det
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    onnx = tmp_path / "det.onnx"
+    onnx.write_bytes(build_ppocr_det(seed=3, neck_ch=8, scale=0.35))
+    ckpt = str(REPO / "models" / "model.safetensors")
+    for make in (lambda: DBDetector(str(onnx)),
+                 lambda: KiriOCR.from_checkpoint(ckpt)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

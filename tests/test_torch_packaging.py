@@ -38,3 +38,11 @@ def test_console_script():
     scripts = _project()["project"]["scripts"]
     assert scripts["kiri-tpu-torch"] == "kiri_tpu_torch.cli:main"
     assert scripts["kiri-tpu"] == scripts["kiri-ocr"] == "kiri_tpu.cli:main"
+
+
+def test_model_files_fixture_is_package_data():
+    data = _project()["tool"]["setuptools"]["package-data"]
+    asset = PORT / "assets" / "smoke_models.npz"
+    assert asset.exists()
+    assert any(fnmatch.fnmatch(str(asset.relative_to(PORT)), pattern)
+               for pattern in data["kiri_tpu_torch"])
