@@ -164,7 +164,32 @@
    ``kiri_tpu``'s, and the bf16 Khmer cluster and codepoint CER of "ctc",
    "decoder" and "beam". The Hugging Face hub is not driven (the machine
    has no network; only local paths are passed);
-11. prints one throughput line per method, one line per streamed method with
+11. the parallel phase (one card: ``kiri_tpu_torch.parallel``): (a) NCCL
+   at world size 1 in this process (``parallel.initialize``, an all-reduce
+   on the card, ``make_mesh(1, 1)``): ``RecognizerEngine(mesh=)`` gives the
+   single-device engine's texts and confidences exactly on the 64 smoke
+   lines, bf16 and float32, "ctc" and "decoder" (accurate); (b) two ranks on
+   card 0 over gloo (NCCL refuses two ranks on one card), started by
+   ``parallel.launch.spawn`` with ``smoke.parallel_rank``: the engine at a
+   model axis of 2 (TP), ``recognize_batch`` "ctc" and "decoder" and
+   ``recognize_crops`` "ctc", float32 texts equal to the single card's,
+   confidences within 1e-4, bf16 within the CER gates; 3 float32 train
+   steps at a data axis of 2 (DP) on ``smoke_train.npz``'s 32 lines, the
+   losses within 1e-4 of the single card's steps on the same global batch;
+   1 step at TP = 2, loss within 1e-5; after each, every weight of each
+   rank within atol 1e-5, rtol 1e-4 of the single card's after the same
+   steps and of the other rank's; ``save_sharded`` by both ranks (two
+   files), ``restore_sharded``
+   onto the mesh (each rank's shards back) and ``to_reference`` (equal to
+   the TP weights gathered, loaded here); the DB trainer's step at DP = 2
+   within 1e-4 of the single card's; (c) each rank's launch counts of the
+   engine runs hold both kernels; (d) a local Hugging Face dataset of the
+   smoke lines (image folder) through ``load_hf_dataset`` and one train
+   step from it, where ``datasets`` imports (a line says so where it does
+   not); it prints the phase's wall time and the per-rank ms of a TP-2
+   bf16 "ctc" ``recognize_batch`` against the single card, with the card's
+   name and power limit;
+12. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -224,6 +249,10 @@ TOL_TRAIN_GRAD_NORM = 1e-3
 TOL_TRAIN_F64 = 1e-9
 TOL_TRAIN_RESUME = 1e-5   # resumed against uninterrupted weights, of scale
 TRAIN_LR = 5e-5           # warm-started fine-tunes of the smoke phase
+TOL_PAR_CONF = 1e-4       # float32 confidences, TP engine against one card
+TOL_PAR_DP = 1e-4         # DP losses against one card (tests/test_sharding.py)
+TOL_PAR_TP = 1e-5         # TP loss against one card
+TOL_PAR_DB = 1e-4         # the DB trainer's DP loss, relative
 TRAIN_BATCH = 64
 TRAIN_REPEAT = 6          # the 64 lines six times: 6 steps an epoch
 TRAIN_EPOCHS = 5
@@ -2456,6 +2485,283 @@ def model_files_phase(torch, np, drive, card):
           f"[{card}]", flush=True)
 
 
+def _weights_close(np, got, want):
+    """(max error, elements beyond atol 1e-5 + rtol 1e-4, elements): the
+    parameters' tolerance of tests/test_sharding.py, every element held."""
+    worst, beyond, total = 0.0, 0, 0
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        w = w.astype(np.float64)
+        err = np.abs(got[k].astype(np.float64) - w)
+        worst = max(worst, float(err.max()))
+        beyond += int((err > 1e-5 + 1e-4 * np.abs(w)).sum())
+        total += w.size
+    return worst, beyond, total
+
+
+def parallel_phase(torch, np, drive, card):
+    """More than one device on one card (see the module's docstring, item
+    11). Returns each rank's launch counts of its engine runs."""
+    import shutil
+    import torch.distributed as dist
+
+    from kiri_tpu_torch import parallel as P
+    from kiri_tpu_torch.checkpoints import find_vocab_file, load_checkpoint
+    from kiri_tpu_torch.detect.db import load_db_checkpoint
+    from kiri_tpu_torch.detect.db.net import build_db_net
+    from kiri_tpu_torch.detect.db.train import DBTrainConfig, train_db
+    from kiri_tpu_torch.engine import RecognizerEngine
+    from kiri_tpu_torch.parallel.launch import free_port, spawn
+    from kiri_tpu_torch.smoke import (PAR_DP_STEPS, PAR_TP_STEPS,
+                                      load_smoke_lines, load_smoke_train,
+                                      parallel_train_batch,
+                                      write_detector_dataset)
+    from kiri_tpu_torch.tokenizer import CharTokenizer
+    from kiri_tpu_torch.train import trainer as T
+
+    t_phase = time.perf_counter()
+    ckpt = REPO / "models" / "model.safetensors"
+    d, crops = load_smoke_lines()
+    imgs, widths = d["imgs"], d["widths"]
+    texts = [str(t) for t in d["texts"]]
+    is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
+    model, cfg, meta = load_checkpoint(ckpt, device="cuda")
+    vocab = find_vocab_file(meta.get("vocab_path", ""), str(ckpt))
+    tok = CharTokenizer(vocab, cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="kiri_parallel_"))
+
+    def cer_ok(res, cer_max):
+        hyp = [t for t, _ in res]
+        kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
+        en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if not k])
+        return kh <= cer_max and en <= cer_max, kh, en
+
+    # (a) NCCL at world size 1, in this process.
+    P.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        one = torch.ones(4, device="cuda")
+        dist.all_reduce(one)
+        mesh = P.make_mesh(1, 1)
+        for dtype in ("bfloat16", "float32"):
+            c = cfg.replace(COMPUTE_DTYPE=dtype)
+            single = RecognizerEngine(model, c, tok, device="cuda")
+            meshed = RecognizerEngine(model, c, tok, device="cuda", mesh=mesh)
+            for method in ("ctc", "decoder"):
+                want = single.recognize_batch(imgs, method, widths)
+                got = drive(f"parallel NCCL world 1 {dtype} {method}",
+                            lambda: meshed.recognize_batch(imgs, method,
+                                                           widths),
+                            ("stem_fused" if dtype == "bfloat16"
+                             else "stem_fused_f32",))
+                same = sum(a[0] == b[0] for a, b in zip(got, want))
+                dconf = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+                check(same == len(want) and dconf <= TOL_PAR_CONF
+                      and float(one[0]) == 1.0,
+                      f"parallel (a): NCCL backend {dist.get_backend()}, "
+                      f"world {dist.get_world_size()}, mesh {mesh.shape}: "
+                      f"{dtype} {method}: {same}/{len(want)} texts equal the "
+                      f"single-device engine's, max |conf diff| {dconf:.2e}")
+    finally:
+        P.shutdown()
+
+    # The single card's answers for (b), before the ranks start.
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = RecognizerEngine(model, cfg.replace(COMPUTE_DTYPE=dtype), tok,
+                               device="cuda")
+        refs[dtype] = {
+            "batch": eng.recognize_batch(imgs, "ctc", widths),
+            "batch_decoder": eng.recognize_batch(imgs, "decoder", widths),
+            "crops": eng.recognize_crops(crops, "ctc")}
+    eng.recognize_batch(imgs, "ctc", widths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.recognize_batch(imgs, "ctc", widths)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / 5
+    del eng
+    cfg32 = cfg.replace(COMPUTE_DTYPE="float32", DROPOUT=0.0)
+    batch = parallel_train_batch(tok, cfg32)
+
+    def trainer():
+        fresh, _, _ = load_checkpoint(ckpt, device="cuda")
+        return T.Trainer(cfg32, tok, T.TrainConfig(), model=fresh,
+                         device="cuda")
+
+    tr = trainer()
+    ref_dp = [tr.run_step(batch) for _ in range(PAR_DP_STEPS)]
+    ref_dp_state = {k: v.detach().cpu().numpy()
+                    for k, v in tr.model.state_dict().items()}
+    del tr
+    tr = trainer()
+    ref_tp = [tr.run_step(batch) for _ in range(PAR_TP_STEPS)]
+    ref_tp_state = {k: v.detach().cpu().numpy()
+                    for k, v in tr.model.state_dict().items()}
+    del tr
+    st = load_smoke_train()
+    det_dir = write_detector_dataset(tmp / "det", st["det_images"],
+                                     st["det_annotations"])
+    ref_db = []
+    train_db(DBTrainConfig(data_dir=det_dir, steps=1, batch_size=4,
+                           log_every=0, out_dir=str(tmp / "db_ref")),
+             verbose=False, net=build_db_net(load_db_checkpoint(
+                 str(REPO / "models" / "detector.safetensors"))),
+             device="cuda", history=ref_db)
+
+    # (b) two gloo ranks on card 0.
+    t0 = time.perf_counter()
+    ranks = spawn("kiri_tpu_torch.smoke:parallel_rank", 2,
+                  {"tmp": str(tmp), "det_dir": det_dir}, device="cuda:0",
+                  backend="gloo", timeout=600, threads=4)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        for dtype in ("float32", "bfloat16"):
+            for key in ("batch", "batch_decoder", "crops"):
+                got, want = r[dtype][key], refs[dtype][key]
+                if dtype == "float32":
+                    same = sum(a[0] == b[0] for a, b in zip(got, want))
+                    dconf = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+                    check(same == len(want) and dconf <= TOL_PAR_CONF,
+                          f"parallel (b) rank {r['rank']}, TP 2, f32 {key}: "
+                          f"{same}/{len(want)} texts equal the single card's,"
+                          f" max |conf diff| {dconf:.2e} (tol "
+                          f"{TOL_PAR_CONF:g})")
+                else:
+                    cap = CER_MAX_DECODER if "decoder" in key else CER_MAX
+                    ok, kh, en = cer_ok(got, cap)
+                    same = sum(a[0] == b[0] for a, b in zip(got, want))
+                    check(ok, f"parallel (b) rank {r['rank']}, TP 2, bf16 "
+                              f"{key}: Khmer CER {kh:.4f}, English CER "
+                              f"{en:.4f} (max {cap}); {same}/{len(want)} "
+                              "texts equal the single card's")
+        dl = [abs(a["loss"] - b["loss"]) for a, b in zip(r["dp"], ref_dp)]
+        check(len(dl) == PAR_DP_STEPS and max(dl) <= TOL_PAR_DP,
+              f"parallel (b) rank {r['rank']}, DP 2: {PAR_DP_STEPS} f32 "
+              f"steps, losses {[round(m['loss'], 6) for m in r['dp']]} "
+              f"against the single card's "
+              f"{[round(m['loss'], 6) for m in ref_dp]}, max diff "
+              f"{max(dl):.2e} (tol {TOL_PAR_DP:g})")
+        dt = abs(r["tp"][0]["loss"] - ref_tp[0]["loss"])
+        check(dt <= TOL_PAR_TP,
+              f"parallel (b) rank {r['rank']}, TP 2: step loss "
+              f"{r['tp'][0]['loss']:.6f} against {ref_tp[0]['loss']:.6f}, "
+              f"diff {dt:.2e} (tol {TOL_PAR_TP:g})")
+        ddb = abs(r["db"][0]["loss"] - ref_db[0]["loss"]) / abs(
+            ref_db[0]["loss"])
+        check(ddb <= TOL_PAR_DB,
+              f"parallel (b) rank {r['rank']}, DB trainer DP 2: step loss "
+              f"{r['db'][0]['loss']:.6f} against {ref_db[0]['loss']:.6f} "
+              f"(rel {ddb:.1e}, tol {TOL_PAR_DB:g})")
+        check(r["restored_shards_equal"] and r["restored_moments_equal"]
+              and r["files"] == [".metadata", "__0_0.distcp",
+                                 "__1_0.distcp"],
+              f"parallel (b) rank {r['rank']}: save_sharded wrote "
+              f"{r['files']}; restore_sharded onto the mesh gives this "
+              f"rank's shards and moments back: "
+              f"{r['restored_shards_equal'] and r['restored_moments_equal']}")
+        launches = {k: v for k, v in r["launches"].items() if v}
+        check(r["launches"]["stem_fused"] > 0
+              and r["launches"]["stem_fused_f32"] > 0
+              and r["launches"]["preprocess_lines"] > 0,
+              f"parallel (c) rank {r['rank']}: the engine runs launched "
+              f"{launches}")
+    for key, steps, want in (("dp", PAR_DP_STEPS, ref_dp_state),
+                             ("tp", PAR_TP_STEPS, ref_tp_state)):
+        for r in ranks:
+            worst, beyond, total = _weights_close(np, r[f"{key}_state"], want)
+            check(beyond == 0,
+                  f"parallel (b) rank {r['rank']}, {key.upper()} 2: weights "
+                  f"after {steps} f32 step(s) against the single card's: max "
+                  f"|diff| {worst:.2e}, {beyond} of {total} beyond atol 1e-5,"
+                  f" rtol 1e-4")
+        worst, beyond, total = _weights_close(np, ranks[1][f"{key}_state"],
+                                              ranks[0][f"{key}_state"])
+        check(beyond == 0,
+              f"parallel (b) {key.upper()} 2: rank 1's weights against rank "
+              f"0's: max |diff| {worst:.2e}, {beyond} of {total} beyond atol "
+              f"1e-5, rtol 1e-4")
+    refmodel, _, _ = load_checkpoint(tmp / "reference.safetensors",
+                                     device="cpu")
+    tp_state = ranks[0]["tp_state"]
+    same = all(np.array_equal(v.numpy(), tp_state[k]) for k, v in
+               refmodel.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+    check(same, f"parallel (b): to_reference of the two ranks' sharded "
+                f"checkpoint loads with the TP trainer's whole weights: "
+                f"{same}")
+
+    # (d) a local Hugging Face dataset of the smoke lines.
+    try:
+        import datasets  # noqa: F401
+    except ImportError as e:
+        print(f"parallel (d): the datasets package does not import here "
+              f"({type(e).__name__}: {e}); the Hugging Face dataset run is "
+              "left out (a missing host package, not a device)", flush=True)
+    else:
+        hf_phase(np, tmp, d, cfg32, tok, ckpt)
+
+    rank_ms = [r["tp_batch_ms"] for r in ranks]
+    print(f"parallel ({card}): phase {time.perf_counter() - t_phase:.1f} s "
+          f"(the two ranks {spawn_s:.1f} s with their start); bf16 \"ctc\" "
+          f"recognize_batch of {len(imgs)} lines: TP 2 over gloo on one "
+          f"card {', '.join(f'{m:.2f}' for m in rank_ms)} ms per rank, "
+          f"single card {single_ms:.2f} ms", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return [r["launches"] for r in ranks]
+
+
+def hf_phase(np, tmp, d, cfg32, tok, ckpt):
+    """The smoke lines as a local image-folder dataset, loaded offline
+    through ``load_hf_dataset`` (samples equal the committed lines) and one
+    float32 train step from it on the card."""
+    import os
+
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    import datasets
+
+    datasets.config.HF_DATASETS_OFFLINE = True
+    datasets.config.HF_HUB_OFFLINE = True
+    datasets.config.HF_DATASETS_CACHE = tmp / "hf_cache"
+    from kiri_tpu_torch.checkpoints import load_checkpoint
+    from kiri_tpu_torch.data.datasets import load_hf_dataset
+    from kiri_tpu_torch.train import trainer as T
+    from kiri_tpu_torch.utils.imageio import encode_png
+
+    import csv
+
+    root = tmp / "hf" / "train"
+    root.mkdir(parents=True)
+    with open(root / "metadata.csv", "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["file_name", "text"])
+        for i, (img, text) in enumerate(zip(d["imgs"], d["texts"])):
+            (root / f"{i}.png").write_bytes(encode_png(img))
+            w.writerow([f"{i}.png", str(text)])
+    train, val = load_hf_dataset([str(tmp / "hf")], img_h=cfg32.IMG_H,
+                                 img_w=cfg32.IMG_W, val_ratio=0.25)
+    samples = [train[i] for i in range(len(train))]
+    same = 0
+    for (src, text), s in zip(train.records, samples):
+        i = int(Path(src["path"]).stem)
+        same += (np.array_equal(s["image"], d["imgs"][i])
+                 and text == str(d["texts"][i]))
+    fresh, _, _ = load_checkpoint(ckpt, device="cuda")
+    tr = T.Trainer(cfg32, tok, T.TrainConfig(batch_size=32), model=fresh,
+                   device="cuda")
+    m = tr.run_step(T.collate(samples[:32], tok, 512,
+                              img_hw=(cfg32.IMG_H, cfg32.IMG_W)))
+    check(len(train) == 48 and len(val) == 16 and same == len(samples)
+          and np.isfinite(m["loss"]),
+          f"parallel (d): datasets {datasets.__version__}: a local dataset "
+          f"of the {len(d['imgs'])} smoke lines loads as {len(train)} train "
+          f"/ {len(val)} val samples (seeded split), {same} of them the "
+          f"committed lines' bytes; one f32 step from it, loss "
+          f"{m['loss']:.4f}")
+
+
 def _same_texts(got_pages, want_pages):
     """(lines, texts equal on identical boxes, boxes not identical, the
     differing texts) of two runs' [box, text] pages."""
@@ -2573,6 +2879,12 @@ def main() -> int:
                      card)
     model_files_phase(torch, np, functools.partial(drive_run, counts, by_run),
                       card)
+    for r, launches in enumerate(parallel_phase(
+            torch, np, functools.partial(drive_run, counts, by_run), card)):
+        by_run[f"parallel rank {r}"] = {k: v for k, v in launches.items()
+                                        if v}
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()

@@ -10,8 +10,15 @@ means ``predict``), and ``--version`` and ``init-config``. What differs:
 - an error exits with status 1 (the JAX package prints it and exits 0);
 - unless ``--no-render`` is given, ``predict`` checks that Pillow imports
   (the result images draw glyphs with it) before any OCR work;
-- ``train --hf-dataset`` exits 1: HuggingFace datasets need the
-  ``datasets`` package and the network (ROADMAP.md, the tail);
+- ``train --hf-dataset`` loads through the ``datasets`` package (a hub
+  id, or a local dataset directory) and reads the images with the port's
+  own PNG reader;
+- more than one device is one process per device: under ``torchrun
+  --nproc-per-node N`` (``WORLD_SIZE`` above 1) ``train`` and
+  ``train-detector`` join the process group (``parallel.initialize``, NCCL
+  on the card, gloo with ``--device cpu``) and ``--n-devices N`` trains
+  over them (``train --model-parallel M`` splits each replica over M);
+  ``train-detector --n-devices`` is the port's, for DB only;
 - ``train-detector`` trains from the live document generator unless
   ``--data-yaml`` is given; with it, the generator's flags (``--image-size``,
   ``--aug-weights`` ...) are named as ignored, as the JAX package ignores
@@ -129,8 +136,8 @@ def _add_train_parser(sub) -> None:
     t.add_argument("--train-labels", help="Path to training labels.txt")
     t.add_argument("--val-labels", help="Path to validation labels.txt")
     t.add_argument("--hf-dataset", "--hf-datasets", nargs="+",
-                   help="HuggingFace dataset ID(s) (not ported: needs the "
-                        "datasets package and the network)")
+                   help="HuggingFace dataset ID(s) or local dataset "
+                        "directories (needs the datasets package)")
     t.add_argument("--hf-subset", default=None)
     t.add_argument("--hf-train-split", default="train")
     t.add_argument("--hf-val-split", default=None)
@@ -259,6 +266,9 @@ def _add_train_detector_parser(sub) -> None:
     for flag, kind, default in _GENERATOR_FLAGS:
         td.add_argument(flag, type=kind, default=default,
                         help="the live generator's: ignored with --data-yaml")
+    td.add_argument("--n-devices", type=int, default=None,
+                    help="data-parallel DB training over the ranks of a "
+                         "torchrun run")
     td.add_argument("--from-model", default=None,
                     help="warm-start detector weights (.safetensors)")
     td.add_argument("--device", default="cuda",
@@ -446,9 +456,23 @@ def merge_config(defaults, file_cfg, overrides) -> dict:
     return merged
 
 
+def _join_ranks(device: str):
+    """Under torchrun (WORLD_SIZE above 1), join the process group (the
+    card of LOCAL_RANK over NCCL, or the CPU over gloo) and return this
+    process's rank; None outside torchrun."""
+    import os
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    from .parallel import initialize, process_info
+
+    initialize(device="cpu" if device == "cpu" else None)
+    return process_info()[0]
+
+
 def run_train(args) -> None:
     from .config import CFG
-    from .data.datasets import load_local_dataset
+    from .data.datasets import load_hf_dataset, load_local_dataset
     from .tokenizer import CharTokenizer, build_vocab_from_texts
     from .train.trainer import TrainConfig, canonical_samples, train_loop
 
@@ -471,31 +495,40 @@ def run_train(args) -> None:
               DEC_HEADS=merged["dec_heads"], DEC_FF=merged["dec_ff"],
               DROPOUT=merged["dropout"], MAX_DEC_LEN=merged["max_seq_len"])
 
-    if args.hf_dataset:
-        raise RuntimeError(
-            "--hf-dataset: HuggingFace datasets are not ported (they need "
-            "the datasets package and the network; ROADMAP.md, the tail); "
-            "train from a labels.txt with --train-labels")
-    if not args.train_labels:
-        raise RuntimeError("--train-labels is required")
-    train_set = load_local_dataset(args.train_labels, cfg.IMG_H, cfg.IMG_W,
-                                   augment=True)
-    if args.val_labels:
-        val_set = load_local_dataset(args.val_labels, cfg.IMG_H, cfg.IMG_W)
+    if args.train_labels:
+        train_set = load_local_dataset(args.train_labels, cfg.IMG_H,
+                                       cfg.IMG_W, augment=True)
+        if args.val_labels:
+            val_set = load_local_dataset(args.val_labels, cfg.IMG_H,
+                                         cfg.IMG_W)
+        else:
+            n_val = max(1, len(train_set) // 20)
+            val_set = [train_set[i] for i in range(n_val)]
+    elif args.hf_dataset:
+        train_set, val_set = load_hf_dataset(
+            args.hf_dataset, args.hf_image_col, args.hf_text_col,
+            cfg.IMG_H, cfg.IMG_W, augment=True,
+            val_ratio=args.hf_val_percent, subset=args.hf_subset,
+            train_split=args.hf_train_split, val_split=args.hf_val_split,
+            streaming=args.hf_streaming)
     else:
-        n_val = max(1, len(train_set) // 20)
-        val_set = [train_set[i] for i in range(n_val)]
+        raise RuntimeError("--train-labels or --hf-dataset is required")
+    rank = _join_ranks(device)
 
     out_dir = Path(merged["output_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
     vocab_path = args.vocab
     if not vocab_path:
         vocab_path = str(out_dir / "vocab.json")
-        if not Path(vocab_path).exists():
+        if not Path(vocab_path).exists() and rank in (None, 0):
             print("🔤 Building vocabulary from training texts...")
             build_vocab_from_texts(
                 (train_set[i]["text"] for i in range(len(train_set))),
                 vocab_path)
+        if rank is not None:
+            import torch.distributed as dist
+
+            dist.barrier()          # rank 0's vocab is written
     tok = CharTokenizer(vocab_path, cfg)
     train_set.canonicalize(tok)
 
@@ -514,9 +547,14 @@ def run_train(args) -> None:
     else:
         val_set.canonicalize(tok)
         val_samples = [val_set[i] for i in range(len(val_set))]
-    train_loop(cfg, tok, tc, train_samples, val_samples,
-               vocab_path=vocab_path, from_model=args.from_model,
-               resume=args.resume, device=device)
+    try:
+        train_loop(cfg, tok, tc, train_samples, val_samples,
+                   vocab_path=vocab_path, from_model=args.from_model,
+                   resume=args.resume, device=device)
+    finally:
+        from .parallel import shutdown
+
+        shutdown()
 
 
 def run_generate(args) -> None:
@@ -626,6 +664,10 @@ def run_train_detector(args) -> None:
         n_batches = max(1, (n_docs + args.batch_size - 1) // args.batch_size)
         steps = args.epochs * n_batches
         print(f"ℹ {args.epochs} epochs x {n_batches} batches = {steps} steps")
+    if (args.n_devices or 1) > 1 and args.detector != "db":
+        raise ValueError("--n-devices: only the DB trainer trains on more "
+                         "than one device (CRAFT's, as kiri_tpu's, on one)")
+    _join_ranks(device)
     common = dict(steps=steps, batch_size=args.batch_size,
                   image_size=args.image_size, pool_size=args.pool_size,
                   khmer_ratio=args.khmer_ratio,
@@ -638,12 +680,17 @@ def run_train_detector(args) -> None:
         from .detect.db.net import build_db_net
         from .detect.db.train import DBTrainConfig, train_db
 
-        tc = DBTrainConfig(**common)
+        tc = DBTrainConfig(**common, n_devices=args.n_devices)
         if args.lr:
             tc.lr = args.lr
         net = (build_db_net(load_db_checkpoint(args.from_model))
                if args.from_model else None)
-        train_db(tc, net=net, device=device)
+        try:
+            train_db(tc, net=net, device=device)
+        finally:
+            from .parallel import shutdown
+
+            shutdown()
     else:
         from .detect.craft import load_craft_checkpoint
         from .detect.craft.net import build_craft_net

@@ -9,8 +9,14 @@ IMG_W], "text"}: the line read as Pillow's ``convert("L")`` reads it
 factor in [0.75, 1.25] drawn from ``random.Random(seed)`` and resized with
 Pillow's bilinear filter (``ops/imgproc.pil_resize_width_bilinear``), then
 resize-padded to the model's input. Every step gives the JAX package's
-bytes. HuggingFace datasets (``load_hf_dataset``) are not ported: they need
-the ``datasets`` package and the network (ROADMAP.md, the tail).
+bytes.
+
+HuggingFace datasets (``load_hf_dataset``): a hub id or a local directory
+through ``datasets.load_dataset`` (imported inside, so the package imports
+without it). The image column is read undecoded (``datasets.Image(decode=
+False)``) and its bytes go through the port's own PNG reader, other
+formats through PIL where it imports: the same grey bytes as the JAX
+package's Pillow ``convert("L")``.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import numpy as np
 
 from ..ops.imgproc import pil_gray, pil_resize_width_bilinear
 from ..ops.preprocess import resize_keep_ratio_pad_np
-from ..utils.imageio import imread_gray
+from ..utils.imageio import decode_gray, imread_gray
 
 
 class LineSampleSet:
@@ -56,6 +62,10 @@ class LineSampleSet:
     @staticmethod
     def _load_gray(src) -> Optional[np.ndarray]:
         try:
+            if isinstance(src, dict):           # an undecoded HF image
+                if src.get("bytes") is not None:
+                    return decode_gray(src["bytes"], str(src.get("path")))
+                return imread_gray(src["path"])
             if isinstance(src, np.ndarray):
                 if src.ndim == 3:
                     if src.shape[2] not in (3, 4):
@@ -104,3 +114,96 @@ def load_local_dataset(labels_file, img_h: int = 48, img_w: int = 640,
     if tok is not None:
         samples.canonicalize(tok)
     return samples
+
+
+def load_hf_dataset(names: Sequence[str], image_col: str = "image",
+                    text_col: str = "text", img_h: int = 48, img_w: int = 640,
+                    augment: bool = False, val_ratio: float = 0.05,
+                    seed: int = 42, subset: Optional[str] = None,
+                    train_split: str = "train",
+                    val_split: Optional[str] = None,
+                    streaming: bool = False
+                    ) -> Tuple[LineSampleSet, LineSampleSet]:
+    """(train, val) sample sets of HF datasets, concatenated, with the JAX
+    package's choices: the validation split is ``val_split``, else
+    "validation", "val" or "test", the first that loads; without one, a
+    seeded split of the train split (``train_test_split(test_size=
+    val_ratio, seed=seed)``, or with ``streaming`` the stream drained into
+    a list and cut by a ``random.Random(seed)`` shuffle). ``streaming``
+    loads with ``streaming=True`` and drains each stream into records."""
+    from datasets import Image, concatenate_datasets, load_dataset
+
+    def _load(name, split):
+        ds = load_dataset(name, subset, split=split, streaming=streaming)
+        features = getattr(ds, "features", None) or {}
+        if isinstance(features.get(image_col), Image):
+            ds = ds.cast_column(image_col, Image(decode=False))
+        if streaming:
+            # Batching needs random access and a length: drain the stream.
+            return [dict(row) for row in ds]
+        return ds
+
+    trains, vals = [], []
+    for name in names:
+        trains.append(_load(name, train_split))
+        val = None
+        for split in (val_split, "validation", "val", "test"):
+            if not split:
+                continue
+            try:
+                val = _load(name, split)
+                break
+            except Exception as e:
+                if split == val_split:
+                    print(f"⚠ val split '{val_split}' of {name} failed "
+                          f"({type(e).__name__}: {e}); trying fallbacks")
+                continue
+        if val is None:
+            if streaming:
+                tr = trains[-1]
+                rng = random.Random(seed)
+                idx = list(range(len(tr)))
+                rng.shuffle(idx)
+                n_val = max(1, int(len(tr) * val_ratio))
+                val = [tr[i] for i in idx[:n_val]]
+                trains[-1] = [tr[i] for i in idx[n_val:]]
+            else:
+                split = trains[-1].train_test_split(test_size=val_ratio,
+                                                    seed=seed)
+                trains[-1] = split["train"]
+                val = split["test"]
+        vals.append(val)
+
+    if streaming:
+        train_ds = [r for ds in trains for r in ds]
+        val_ds = [r for ds in vals for r in ds]
+    else:
+        train_ds = (concatenate_datasets(trains) if len(trains) > 1
+                    else trains[0])
+        val_ds = concatenate_datasets(vals) if len(vals) > 1 else vals[0]
+    return (LineSampleSet(_HFRecords(train_ds, image_col, text_col), img_h,
+                          img_w, augment, seed),
+            LineSampleSet(_HFRecords(val_ds, image_col, text_col), img_h,
+                          img_w, False, seed))
+
+
+class _HFRecords:
+    """An HF dataset (or a drained stream) as a sequence of (image, text)."""
+
+    def __init__(self, ds, image_col: str, text_col: str):
+        self.ds = ds
+        self.image_col = image_col
+        self.text_col = text_col
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return [self[i] for i in range(*idx.indices(len(self)))]
+        item = self.ds[int(idx)]
+        return (item[self.image_col], item[self.text_col])
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]

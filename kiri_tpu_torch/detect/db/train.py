@@ -6,7 +6,18 @@
 
 Global-norm clipping at ``grad_clip`` as optax computes it, then AdamW
 (betas (0.9, 0.999), eps 1e-8, decay on every parameter) under optax's
-cosine decay to ``alpha=0.05`` of the peak, computed on the host. One card.
+cosine decay to ``alpha=0.05`` of the peak, computed on the host.
+
+``n_devices`` above 1 trains data-parallel, one process per device (joined
+by ``kiri_tpu_torch.parallel.initialize``), where ``kiri_tpu``'s trainer
+takes the field and runs on one device: every rank draws the same global
+batch and keeps its rows. The DB net normalizes with GroupNorm, which holds
+no batch statistics, so only the loss couples the rows: the positive count,
+the hard negatives (the global top values, found from each rank's own top
+values), the dice sums and the border-band count are taken over the global
+batch, and each rank's loss term is its share, so that the gradients summed
+over the ranks are one device's. The batch must divide by ``n_devices``;
+rank 0 writes the checkpoint.
 
 The batches come from a ``generate-detector`` directory (``data_dir``,
 uploaded to the card once) or from the live document generator: a pool of
@@ -28,7 +39,8 @@ import torch
 from ...data.docsynth import (DocumentGenerator, apply_condition,
                               db_ground_truth, load_detector_batches)
 from ...device import no_tf32, resolve_device
-from ...train.trainer import MULTI_DEVICE, clip_by_global_norm
+from ... import parallel as P
+from ...train.trainer import clip_by_global_norm
 from .net import DBNet
 
 
@@ -97,39 +109,72 @@ def make_batch(gen: DocumentGenerator, batch_size: int,
             "tmask": tmasks}
 
 
+def _global_top_sum(vals: torch.Tensor, m: int, mesh) -> torch.Tensor:
+    """This rank's share of the sum of the global top ``m`` values of
+    ``vals`` over the data axis (the whole sum without a mesh): each rank's
+    own top m hold the global ones; the m-th largest of their union is the
+    threshold, and values equal to it are taken in rank order, as one
+    device's sorted top-k takes them from its rows in order."""
+    if m == 0:
+        return vals.sum() * 0.0
+    top = torch.topk(vals, min(m, vals.numel()), sorted=True).values
+    if mesh is None or mesh.data_size == 1:
+        return top.sum()
+    pad = top.new_full((m,), float("-inf"))
+    pad[: top.numel()] = top.detach()
+    union = torch.cat(P.gather_tensor(pad, mesh.data_group, mesh.data_size,
+                                      mesh.data_index))
+    t = torch.topk(union, m, sorted=True).values[-1]
+    above = int((union > t).sum())
+    ties = [int((p == t).sum()) for p in union.view(mesh.data_size, m)]
+    before = sum(ties[: mesh.data_index])
+    take = max(0, min(ties[mesh.data_index], m - above - before))
+    mine = int((top > t).sum()) + take
+    return top[:mine].sum()
+
+
 def db_loss(net: DBNet, batch: Dict[str, torch.Tensor], *, k: float,
-            alpha: float, beta: float, neg_ratio: float):
+            alpha: float, beta: float, neg_ratio: float, mesh=None):
     """batch: image [B, H, W, 1] float32 in [-1, 1], prob_gt, thresh_gt,
     tmask [B, H, W]. Returns (loss, metrics as 0-d tensors).
 
-    The hard negatives are the top N // 4 of the negatives' BCE (N pixels,
-    a static count as in the JAX package), of which the first
-    min(#negatives, neg_ratio * #positives) count."""
+    The hard negatives are the top min(#negatives, neg_ratio * #positives)
+    of the negatives' BCE, at most N // 4 of them (N pixels, a static
+    count as in the JAX package).
+
+    Over ``mesh`` the batch is this rank's rows of the global batch (every
+    rank as many) and the loss is this rank's term: the terms of all ranks
+    add up to the global loss, and the sums that couple the rows go through
+    ``parallel.data_sum``, whose backward adds every rank's gradient, so
+    the gradients summed over the ranks are the global batch's. The
+    metrics are the global batch's."""
+    dp = 1 if mesh is None else mesh.data_size
     prob, thresh = net(batch["image"].permute(0, 3, 1, 2), train=True)
     gt = batch["prob_gt"]
     eps = 1e-6
     bce = -(gt * torch.log(prob + eps) + (1 - gt) * torch.log(1 - prob + eps))
     pos = gt > 0.5
-    n_pos = pos.sum().clamp(min=1)
-    n_neg = torch.minimum((~pos).sum(), (neg_ratio * n_pos).long())
-    pos_loss = torch.where(pos, bce, 0.0).sum() / n_pos
+    counts = P.data_sum_value(torch.stack([pos.sum(), (~pos).sum()]), mesh)
+    n_pos = counts[0].clamp(min=1)
+    n_neg = torch.minimum(counts[1], (neg_ratio * n_pos).long())
+    pos_part = torch.where(pos, bce, 0.0).sum() / n_pos
     neg_vals = torch.where(pos, float("-inf"), bce).reshape(-1)
-    k_neg = neg_vals.numel() // 4
-    top_neg = torch.topk(neg_vals, k_neg, sorted=True).values
-    rank = torch.arange(k_neg, device=top_neg.device)
-    neg_loss = (torch.where(rank < n_neg, top_neg, 0.0).sum()
-                / n_neg.clamp(min=1))
-    l_prob = pos_loss + neg_loss
+    m = min(int(n_neg), neg_vals.numel() * dp // 4)
+    neg_part = _global_top_sum(neg_vals, m, mesh) / n_neg.clamp(min=1)
 
     b = torch.sigmoid(k * (prob - thresh))
-    l_bin = 1.0 - 2.0 * (b * gt).sum() / (b.sum() + gt.sum() + eps)
+    sums = P.data_sum(torch.stack([(b * gt).sum(), b.sum(), gt.sum()]), mesh)
+    l_bin = 1.0 - 2.0 * sums[0] / (sums[1] + sums[2] + eps)
 
     tm = batch["tmask"]
-    l_thr = ((thresh - batch["thresh_gt"]).abs() * tm).sum() / \
-        tm.sum().clamp(min=1.0)
+    thr_part = ((thresh - batch["thresh_gt"]).abs() * tm).sum() / \
+        P.data_sum_value(tm.sum(), mesh).clamp(min=1.0)
 
+    part = pos_part + neg_part + alpha * l_bin / dp + beta * thr_part
+    l_prob = P.data_sum_value(pos_part + neg_part, mesh)
+    l_thr = P.data_sum_value(thr_part, mesh)
     loss = l_prob + alpha * l_bin + beta * l_thr
-    return loss, {"loss": loss, "prob_loss": l_prob, "bin_loss": l_bin,
+    return part, {"loss": loss, "prob_loss": l_prob, "bin_loss": l_bin,
                   "thresh_loss": l_thr}
 
 
@@ -176,13 +221,15 @@ def run_steps(net: torch.nn.Module, pool, steps: int, seed: int, loss_fn,
               schedule: Optional[Callable[[int], float]], save,
               log_every: int, verbose: bool,
               history: Optional[List[Dict[str, float]]],
-              fresh: Optional[Callable[[], Dict]] = None) -> None:
+              fresh: Optional[Callable[[], Dict]] = None,
+              mesh=None) -> None:
     """The detector trainers' loop: a batch of ``pool`` drawn by
     ``default_rng(seed)`` each step (``fresh()`` when the pool is empty;
     a host batch is uploaded to the net's device), loss, clip, optimizer
     step (at ``schedule(step)`` when given), all in float32 without TF32;
     ``save(step, loss)`` every 500 steps and at the last; each step's
-    metrics appended to ``history``."""
+    metrics appended to ``history``. Over ``mesh`` each rank keeps its rows
+    of the batch and the gradients are summed over the data axis."""
     params = [p for p in net.parameters()]
     for p in params:
         p.grad = torch.zeros_like(p)
@@ -193,11 +240,14 @@ def run_steps(net: torch.nn.Module, pool, steps: int, seed: int, loss_fn,
     dev = params[0].device
     for step in range(steps):
         batch = pool[int(nprng.integers(len(pool)))] if pool else fresh()
+        if mesh is not None:
+            batch = P.shard_batch_global(batch, mesh)
         if any(isinstance(v, np.ndarray) for v in batch.values()):
             batch = to_device(batch, dev)
         with no_tf32():
             loss, metrics = loss_fn(net, batch)
             loss.backward()
+        P.sync_gradients(grads, mesh)
         clip_by_global_norm(grads, grad_clip)
         if schedule is not None:
             for group in optimizer.param_groups:
@@ -212,7 +262,7 @@ def run_steps(net: torch.nn.Module, pool, steps: int, seed: int, loss_fn,
                   + " ".join(f"{k}={v:.5f}" for k, v in m.items())
                   + f" ({time.time() - t0:.0f}s)")
         if (step + 1) % 500 == 0 or step + 1 == steps:
-            save(step, float(loss))
+            save(step, float(metrics["loss"].detach()))
     if history is not None and kept:
         history.extend(dict(zip(keys, row))
                        for row in torch.stack(kept).tolist())
@@ -224,11 +274,17 @@ def train_db(tc: DBTrainConfig, verbose: bool = True,
     """Train the DB net on ``tc.data_dir`` or the live generator (from
     scratch, seeded by ``tc.seed``, unless ``net`` is given) on the card
     unless ``device`` says otherwise; writes ``<out_dir>/detector.safetensors``.
-    Returns the net."""
+    ``tc.n_devices`` above 1: data-parallel over the ranks of
+    ``parallel.initialize``. Returns the net."""
     from . import save_db_checkpoint
+    from ...train.trainer import TrainConfig, train_mesh
 
-    if (tc.n_devices or 1) > 1:
-        raise NotImplementedError(MULTI_DEVICE)
+    mesh = train_mesh(TrainConfig(n_devices=tc.n_devices))
+    if mesh is not None and tc.batch_size % mesh.data_size:
+        raise ValueError(f"batch_size {tc.batch_size} does not divide over "
+                         f"{mesh.data_size} devices")
+    writer = mesh is None or mesh.rank == 0
+    verbose = verbose and writer
     dev = resolve_device(device)
     if net is None:
         net = DBNet().init_weights(torch.Generator().manual_seed(tc.seed))
@@ -255,11 +311,13 @@ def train_db(tc: DBTrainConfig, verbose: bool = True,
 
     def loss_fn(n, batch):
         return db_loss(n, batch, k=tc.k, alpha=tc.alpha, beta=tc.beta,
-                       neg_ratio=tc.neg_ratio)
+                       neg_ratio=tc.neg_ratio, mesh=mesh)
+
+    def save(step, loss):
+        if writer:
+            save_db_checkpoint(out / "detector.safetensors", net)
 
     run_steps(net, pool, tc.steps, tc.seed, loss_fn, optimizer, tc.grad_clip,
-              cosine_decay_schedule(tc.lr, tc.steps, alpha=0.05),
-              lambda step, loss: save_db_checkpoint(
-                  out / "detector.safetensors", net),
-              tc.log_every, verbose, history, fresh)
+              cosine_decay_schedule(tc.lr, tc.steps, alpha=0.05), save,
+              tc.log_every, verbose, history, fresh, mesh)
     return net

@@ -24,6 +24,17 @@ fetch brings the results.
 ``stream_records[_batch]`` give the reference's streaming records, one
 sequence a line: replayed from one decode of the whole batch, or produced a
 window of steps at a time (``window=W``, ``_WindowedStream``).
+
+``mesh=`` (``kiri_tpu_torch.parallel.make_mesh``, one process per device):
+the parameters are placed by ``parallel.shard_variables`` (the model axis
+splits attentions, FFNs and vocabulary heads, whose forward then all-reduces
+over it), and each public call splits its lines over the data axis as
+``kiri_tpu`` shards its batch: the batch bucket rounded up to a multiple of
+the data axis, in equal blocks of rows, the rows past the batch left out.
+Each rank recognizes its rows (the stem and preprocess kernels on its own
+device) and every rank returns the whole batch's results in input order.
+Every rank must make the same calls with the same lines. Over a data axis
+above 1 a stream's records are gathered whole before they are returned.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from .device import resolve_device
 from .data.khmer_order import IncrementalLogical
 from .kernels.resize import (enhance_lines, pack_crops, post_blur_masked,
                              preprocess_lines)
+from . import parallel as P
 from .models.recognizer import Recognizer
 from .ops import decode as D
 from .ops.ctc import greedy_ctc_stats
@@ -96,16 +108,23 @@ class Encoded(NamedTuple):
 
 class RecognizerEngine:
     def __init__(self, model: Recognizer, cfg: CFG, tok: CharTokenizer,
-                 device=None, upload_bits: int = 8):
+                 device=None, upload_bits: int = 8, mesh=None):
         """``device=None`` means the card; pass ``device="cpu"`` to run on
         the CPU (the kernels' plain versions). ``cfg.COMPUTE_DTYPE`` picks
         the compute dtype. ``upload_bits=4`` packs two 16-level pixels per
         byte on the host (``pack4``) and unpacks them on the device, halving
-        the upload of ``recognize_batch``; 8 keeps the pixels exact."""
+        the upload of ``recognize_batch``; 8 keeps the pixels exact.
+        ``mesh``: recognize over the ranks of a ``parallel.Mesh`` (see the
+        module's docstring)."""
         if upload_bits not in (4, 8):
             raise ValueError(f"upload_bits must be 4 or 8, got {upload_bits}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        model = model.to(self.device)
+        if mesh is not None:
+            model = P.shard_variables(model, mesh)
+        self.model = model.eval()
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.data_size
         self.cfg = cfg
         self.tok = tok
         self.upload_bits = upload_bits
@@ -121,8 +140,8 @@ class RecognizerEngine:
         self.certified_rows = 0
 
     @classmethod
-    def from_checkpoint(cls, path: str, device=None, upload_bits: int = 8
-                        ) -> "RecognizerEngine":
+    def from_checkpoint(cls, path: str, device=None, upload_bits: int = 8,
+                        mesh=None) -> "RecognizerEngine":
         """Engine over a recognizer file in any format that
         ``checkpoints.load_checkpoint`` reads, its config and the vocab
         beside it."""
@@ -130,7 +149,30 @@ class RecognizerEngine:
         vocab = find_vocab_file(meta.get("vocab_path", ""), path)
         if vocab is None:
             raise FileNotFoundError(f"no vocab file found near {path}")
-        return cls(model, cfg, CharTokenizer(vocab, cfg), device, upload_bits)
+        return cls(model, cfg, CharTokenizer(vocab, cfg), device, upload_bits,
+                   mesh)
+
+    # ------------------------------------------------------------ the mesh
+    def _rows(self, n: int) -> Tuple[int, int, int]:
+        """(lo, hi, rows a rank) of this rank's block of n lines over the
+        data axis: the batch bucket rounded up to a multiple of the data
+        axis, cut in equal blocks; [lo, hi) is clipped to the n lines."""
+        dp = self._dp
+        bucket = pick_batch_bucket(self.cfg, n)
+        per = -(-bucket // dp)
+        lo = min(n, self.mesh.data_index * per)
+        return lo, min(n, lo + per), per
+
+    def _over_data(self, n: int, fn) -> List:
+        """``fn(lo, hi)`` (a list, one item a line) on this rank's lines,
+        every rank's lists joined in line order; ``fn(0, n)`` without a data
+        axis."""
+        if self._dp == 1:
+            return fn(0, n)
+        lo, hi, _ = self._rows(n)
+        mine = fn(lo, hi) if hi > lo else []
+        return [r for part in P.all_gather_objects(mine, self.mesh.data_group)
+                for r in part]
 
     # ------------------------------------------------------------ internals
     def _check(self, method: str) -> None:
@@ -171,8 +213,24 @@ class RecognizerEngine:
 
     def encode_batch(self, imgs_u8: np.ndarray):
         """u8 [N, H, W] -> (memp, ctc_logits, ids, conf, est_len, n_valid)
-        on the device; the batch is padded with blank rows to its bucket."""
-        return tuple(self._encode_u8(imgs_u8))
+        on the device; the batch is padded with blank rows to its bucket.
+        Over a data axis each rank encodes its block of the padded batch
+        (the bucket rounded up to a multiple of the axis) and every rank
+        gets the whole padded batch's outputs."""
+        imgs_u8 = np.asarray(imgs_u8, np.uint8)
+        n = imgs_u8.shape[0]
+        if self._dp == 1:
+            return tuple(self._encode_u8(imgs_u8))
+        _, _, per = self._rows(n)
+        padded = np.zeros((per * self._dp,) + imgs_u8.shape[1:], np.uint8)
+        padded[:n] = imgs_u8
+        d = self.mesh.data_index
+        e = self._encode_u8(padded[d * per: (d + 1) * per])
+        m = self.mesh
+        whole = [None if t is None else torch.cat(P.gather_tensor(
+            t[:per], m.data_group, m.data_size, m.data_index))
+            for t in e[:5]]
+        return (*whole, n)
 
     def _decode_texts(self, tokens: np.ndarray, lengths: np.ndarray
                       ) -> List[str]:
@@ -390,6 +448,13 @@ class RecognizerEngine:
         n = imgs_u8.shape[0]
         if n == 0:
             return []
+        return self._over_data(n, lambda lo, hi: self._recognize_batch(
+            imgs_u8[lo:hi], method,
+            None if widths is None else np.asarray(widths)[lo:hi]))
+
+    def _recognize_batch(self, imgs_u8: np.ndarray, method: str,
+                         widths: Optional[np.ndarray]) -> List[Result]:
+        n = imgs_u8.shape[0]
         project = method != "ctc"
         if widths is None:
             return self._recognize(
@@ -423,7 +488,18 @@ class RecognizerEngine:
         self._check(method)
         if len(crops) == 0:
             return []
-        buf, sizes = pack_crops(list(crops))
+        crops = list(crops)
+        sharpen = (np.asarray(sharpen, bool) if np.ndim(sharpen)
+                   else bool(sharpen))
+        return self._over_data(len(crops), lambda lo, hi:
+                               self._recognize_crops(
+                                   crops[lo:hi], method, enhance,
+                                   sharpen[lo:hi] if np.ndim(sharpen)
+                                   else sharpen))
+
+    def _recognize_crops(self, crops: List[np.ndarray], method: str,
+                         enhance: bool, sharpen) -> List[Result]:
+        buf, sizes = pack_crops(crops)
         n = buf.shape[0]
         pad = pick_batch_bucket(self.cfg, n) - n
         sizes = np.concatenate([sizes, np.ones((pad, 2), np.int32)])
@@ -577,6 +653,14 @@ class RecognizerEngine:
         imgs_u8 = np.asarray(imgs_u8)
         if imgs_u8.shape[0] == 0:
             return []
+        if self._dp > 1:
+            return self._over_data(imgs_u8.shape[0], lambda lo, hi: [
+                list(r) for r in self._stream_records_batch(
+                    imgs_u8[lo:hi], method, window)])
+        return self._stream_records_batch(imgs_u8, method, window)
+
+    def _stream_records_batch(self, imgs_u8: np.ndarray, method: str,
+                              window: Optional[int]) -> List[Iterable[Dict]]:
         if method == "auto":
             method = "ctc"
         e = self._encode_u8(imgs_u8, project=method != "ctc")

@@ -19,6 +19,14 @@ Dropout2d), every parameter is cast on each call, and dropout draws from an
 explicit ``torch.Generator`` at the rate the caller passes (the trainer's
 ``cfg.DROPOUT``). The flag is an argument, not ``module.training``: an
 engine that validates the model under training calls ``.eval()`` on it.
+
+Under a mesh (``kiri_tpu_torch.parallel.shard_variables``) the attentions,
+FFNs and vocabulary heads hold this rank's shards and carry the mesh; the
+heads' logits are gathered whole on every rank. The training stem's
+BatchNorm statistics are then those of the global batch: each rank's sums
+(of the values, then of the squared deviations from the global mean) are
+added over the data axis, as ``kiri_tpu``'s jitted mean over a sharded
+batch is.
 """
 from __future__ import annotations
 
@@ -58,25 +66,31 @@ class Stem(nn.Module):
         return self._folded.get(self.net, dtype)
 
     def train_forward(self, x: torch.Tensor, drop: float,
-                      gen: Optional[torch.Generator]):
+                      gen: Optional[torch.Generator], mesh=None):
         """The training stem: x [B, H, W] in the compute dtype -> (NHWC
         [B, H/8, W/4, D], the four BatchNorms' new running (mean, var)).
         Each conv runs in x's dtype; BatchNorm normalizes by the batch's
-        statistics in float32; the running statistics take momentum 0.1 and
-        the unbiased variance; Dropout2d drops whole channels at the end."""
+        statistics in float32 (the global batch's over ``mesh``'s data
+        axis, each rank holding as many rows); the running statistics take
+        momentum 0.1 and the unbiased variance; Dropout2d drops whole
+        channels at the end."""
+        from ..parallel import data_sum
+
         h = x.unsqueeze(1)
         stats = []
+        dp = 1 if mesh is None else mesh.data_size
         for i, stride in enumerate(STRIDES):
             conv, bn = self.net[3 * i], self.net[3 * i + 1]
             h = F.conv2d(h, conv.weight.to(h.dtype), stride=stride, padding=1)
             hf = L.wide(h)
-            mean = hf.mean(dim=(0, 2, 3))
-            var = hf.var(dim=(0, 2, 3), unbiased=False)
+            n = h.shape[0] * h.shape[2] * h.shape[3] * dp
+            mean = data_sum(hf.sum(dim=(0, 2, 3)), mesh) / n
+            var = data_sum(((hf - mean[:, None, None]) ** 2).sum(
+                dim=(0, 2, 3)), mesh) / n
             inv = torch.rsqrt(var + BN_EPS) * bn.weight
             y = ((hf - mean[:, None, None]) * inv[:, None, None]
                  + bn.bias[:, None, None])
             h = F.silu(y.to(h.dtype))
-            n = h.shape[0] * h.shape[2] * h.shape[3]
             with torch.no_grad():
                 stats.append((
                     (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean,
@@ -96,7 +110,10 @@ class Stem(nn.Module):
 
 
 class Attention(nn.Module):
-    """Parameters of ``nn.MultiheadAttention`` (fused q/k/v projection)."""
+    """Parameters of ``nn.MultiheadAttention`` (fused q/k/v projection).
+    ``tp``: the mesh, where the projections are this rank's heads."""
+
+    tp = None
 
     def __init__(self, dim: int):
         super().__init__()
@@ -107,6 +124,8 @@ class Attention(nn.Module):
 
 
 class EncoderLayer(nn.Module):
+    tp_ffn = None   # the mesh, where linear1 / linear2 are shards
+
     def __init__(self, dim: int, ff: int):
         super().__init__()
         self.self_attn = Attention(dim)
@@ -117,6 +136,8 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    tp_ffn = None
+
     def __init__(self, dim: int, ff: int):
         super().__init__()
         self.self_attn = Attention(dim)
@@ -144,9 +165,13 @@ class PositionTable(nn.Module):
 def _cast_tree(module: nn.Module, dtype: torch.dtype) -> SimpleNamespace:
     """A module's parameters under their own names, cast to ``dtype``: the
     matrices, and the biases that ``layers.dense`` then adds inside its
-    matmul. LayerNorm's parameters stay float32, the type it runs in."""
+    matmul. LayerNorm's parameters stay float32, the type it runs in. A
+    module's mesh (``tp``, ``tp_ffn``) comes along."""
     out = SimpleNamespace()
     keep = isinstance(module, nn.LayerNorm)
+    for key in ("tp", "tp_ffn"):
+        if getattr(module, key, None) is not None:
+            setattr(out, key, getattr(module, key))
     for name, p in module.named_parameters(recurse=False):
         setattr(out, name, p.detach() if keep else p.detach().to(dtype))
     for name, child in module.named_children():
@@ -160,7 +185,8 @@ class DecoderWeights(SimpleNamespace):
     dtype, ``layers`` (``_cast_tree`` of each decoder layer), ``dec_ln``, and
     the output heads as one linear ``head_w`` [V or 2V, D], ``head_b``: the
     decoder head's rows first, then the LM head's where the model has one
-    and ``cfg.USE_LM`` is set."""
+    and ``cfg.USE_LM`` is set (under a mesh, this rank's rows of each, and
+    ``tp`` the mesh); ``vocab`` is V."""
 
 
 @functools.lru_cache(maxsize=16)
@@ -208,21 +234,22 @@ class Recognizer(nn.Module):
 
     def encode(self, images: torch.Tensor, dtype: torch.dtype,
                train: bool = False, drop: float = 0.0,
-               gen: Optional[torch.Generator] = None):
+               gen: Optional[torch.Generator] = None, mesh=None):
         """u8 [B, H, W] (or [B, 1, H, W]), or lines already normalized to
         [-1, 1], -> encoder memory [B, W/4, D] in ``dtype``: stem -> 2D
         position table -> mean over height -> LN -> encoder -> LN.
 
         ``train=True`` runs the training forward (``Stem.train_forward``,
         dropout at rate ``drop`` drawn from ``gen``) and returns (memory, the
-        stem's new running statistics); otherwise the stem is
-        ``stem_fused`` on the folded weights."""
+        stem's new running statistics, of the global batch over ``mesh``'s
+        data axis); otherwise the stem is ``stem_fused`` on the folded
+        weights."""
         if images.dim() == 4:
             images = images[:, 0]
         x = (normalize_u8(images, dtype) if images.dtype == torch.uint8
              else images.to(dtype))
         if train:
-            feat, stats = self.stem.train_forward(x, drop, gen)
+            feat, stats = self.stem.train_forward(x, drop, gen, mesh)
         elif drop:
             raise ValueError("dropout belongs to the training forward "
                              "(train=True)")
@@ -244,7 +271,8 @@ class Recognizer(nn.Module):
         ln, proj = self.ctc_head[0], self.ctc_head[2]
         h = L.layer_norm(mem, ln.weight, ln.bias)
         h = L.dropout(h, drop, gen)
-        return L.wide(L.dense(h, proj.weight, proj.bias))
+        return L.wide(_vocab_head(h, proj.weight, proj.bias,
+                                  getattr(proj, "tp", None)))
 
     def mem_project(self, mem: torch.Tensor) -> torch.Tensor:
         return L.dense(mem, self.mem_proj.weight)
@@ -270,7 +298,8 @@ class Recognizer(nn.Module):
             x = L.decoder_layer(layer, x, mem_proj, self.dec_heads, causal,
                                 drop, gen)
         x = L.layer_norm(x, self.dec_ln.weight, self.dec_ln.bias)
-        return L.wide(L.dense(x, self.dec_head.weight, self.dec_head.bias))
+        return L.wide(_vocab_head(x, self.dec_head.weight, self.dec_head.bias,
+                                  getattr(self.dec_head, "tp", None)))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "Recognizer":
@@ -311,6 +340,7 @@ class Recognizer(nn.Module):
 
         def build() -> DecoderWeights:
             heads = [self.dec_head] + ([self.lm_head] if has_lm else [])
+            tp = getattr(self.dec_head, "tp", None)
             pe = None
             if hasattr(self, "dec_pos_enc"):
                 pe = torch.from_numpy(L.sinusoid_table(
@@ -322,7 +352,9 @@ class Recognizer(nn.Module):
                 dec_ln=self.dec_ln,
                 head_w=torch.cat([h.weight.detach() for h in heads]).to(dtype),
                 head_b=torch.cat([h.bias.detach() for h in heads]).to(dtype),
-                vocab=self.dec_head.weight.shape[0], has_lm=has_lm)
+                vocab=self.dec_head.weight.shape[0] * (
+                    1 if tp is None else tp.model_size),
+                has_lm=has_lm, tp=tp)
         return self._decoder_weights.lookup(tensors, dtype, build)
 
     def _heads(self, w: DecoderWeights, x: torch.Tensor
@@ -330,7 +362,8 @@ class Recognizer(nn.Module):
         """dec_ln -> fused output heads: float32 (dec_logits, lm_logits or
         None) over the last axis of x."""
         x = L.layer_norm(x, w.dec_ln.weight, w.dec_ln.bias)
-        both = L.dense(x, w.head_w, w.head_b).float()
+        both = _vocab_head(x, w.head_w, w.head_b, w.tp,
+                           2 if w.has_lm else 1).float()
         if w.has_lm:
             return both[..., :w.vocab], both[..., w.vocab:]
         return both, None
@@ -367,9 +400,12 @@ class Recognizer(nn.Module):
     def init_decode_cache(self, batch: int, max_len: int, dtype: torch.dtype
                           ) -> torch.Tensor:
         d = self.dec_emb.weight.shape[1]
-        return L.init_self_cache(len(self.dec.layers), batch, max_len,
-                                 self.dec_heads, d // self.dec_heads, dtype,
-                                 self.dec_emb.weight.device)
+        hd = d // self.dec_heads
+        layers = self.dec.layers
+        heads = (layers[0].self_attn.in_proj_weight.shape[0] // 3 // hd
+                 if len(layers) else self.dec_heads)   # this rank's heads
+        return L.init_self_cache(len(self.dec.layers), batch, max_len, heads,
+                                 hd, dtype, self.dec_emb.weight.device)
 
     def decoder_step(self, tok_ids: torch.Tensor, pos: int,
                      cache: torch.Tensor, cross_kvs
@@ -391,6 +427,19 @@ class Recognizer(nn.Module):
 
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _vocab_head(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, tp=None, parts: int = 1) -> torch.Tensor:
+    """``dense`` of an output head; with ``tp`` the head holds this rank's
+    vocabulary rows (of each of ``parts`` fused heads) and the logits are
+    gathered whole."""
+    if tp is None:
+        return L.dense(x, weight, bias)
+    from ..parallel import copy_to_model, gather_from_model
+
+    return gather_from_model(L.dense(copy_to_model(x, tp), weight, bias), tp,
+                             parts)
 
 
 def num_params(model: nn.Module) -> int:

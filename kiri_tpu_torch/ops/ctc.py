@@ -111,6 +111,17 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
     ``F.ctc_loss``'s own ``reduction="mean"`` would count the empty rows, so
     it reduces nothing here.
     """
+    nll_sum, count = ctc_loss_terms(logits, logit_lens, labels, label_lens,
+                                    blank_id)
+    return nll_sum / count.clamp(min=1)
+
+
+def ctc_loss_terms(logits: torch.Tensor, logit_lens: torch.Tensor,
+                   labels: torch.Tensor, label_lens: torch.Tensor,
+                   blank_id: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ctc_loss`` as (the sum of the per-row terms, the count of rows with
+    labels): a data-parallel step adds each over the ranks before it
+    divides."""
     log_probs = torch.log_softmax(logits if logits.dtype == torch.float64
                                   else logits.float(), dim=-1).transpose(0, 1)
     nll = F.ctc_loss(log_probs, labels.long(), logit_lens.long(),
@@ -118,4 +129,4 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
                      zero_infinity=True)
     has = label_lens > 0
     nll = torch.where(has, nll / label_lens.clamp(min=1), 0.0)
-    return nll.sum() / has.sum().clamp(min=1)
+    return nll.sum(), has.sum()

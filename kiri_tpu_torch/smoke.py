@@ -25,6 +25,9 @@ renderer:
   texts with the PP-OCR DB graph that ``build_ppocr_det`` writes, and its
   Khmer cluster CER of the smoke lines.
 
+``parallel_rank`` is the body of each of the two ranks of
+``chip_smoke.py``'s parallel phase (gloo, both on card 0).
+
 ``build_ppocr_det`` writes that graph (MobileNetV3-large x0.5, DBFPN(96),
 the DB head) from a seed, byte for byte as the JAX package's test builder
 does.
@@ -523,3 +526,129 @@ def build_ppocr_det(seed: int = 3, scale: float = 0.5, neck_ch: int = 96,
     prob = b.emit("Sigmoid", [y])
     return pb.write_model(b.nodes, b.inits, [("x", [None, 3, None, None])],
                           [(prob, [None, 1, None, None])], opset=13)
+
+
+MODELS = Path(__file__).resolve().parent.parent / "models"
+#: The parallel phase's training runs: DP steps, TP steps, the batch.
+PAR_DP_STEPS, PAR_TP_STEPS = 3, 1
+
+
+def parallel_train_batch(tok, cfg):
+    """The recognizer batch of the parallel phase: the 32 lines of
+    ``smoke_train.npz``'s ``rec_idx``, full width."""
+    from .train.trainer import collate
+
+    d, _ = load_smoke_lines()
+    st = load_smoke_train()
+    samples = [{"image": d["imgs"][i], "text": str(d["texts"][i])}
+               for i in st["rec_idx"]]
+    return collate(samples, tok, 512, img_hw=(cfg.IMG_H, cfg.IMG_W))
+
+
+def parallel_rank(tmp: str, det_dir: str, timed_reps: int = 5) -> Dict:
+    """One rank of a model axis of 2 over the ranks (TP = 2), then a data
+    axis of 2 (DP = 2), on the committed checkpoint and smoke lines:
+
+    - the TP engine in float32 and bf16: ``recognize_batch`` "ctc" and
+      "decoder" with the width buckets, ``recognize_crops`` "ctc" (the
+      kernels' launch counts of these runs, and the ms of a timed bf16
+      "ctc" batch);
+    - ``PAR_DP_STEPS`` float32 steps at DP = 2 and ``PAR_TP_STEPS`` at
+      TP = 2 (DROPOUT 0, TF32 off), the metrics and the whole weights;
+    - ``save_sharded`` of the TP trainer by every rank, ``restore_sharded``
+      onto the mesh (each rank's shards must come back) and whole, and
+      ``to_reference`` on rank 0;
+    - one data-parallel step of the DB trainer on the fixture's documents.
+    """
+    import time
+
+    import torch
+
+    from . import parallel as P
+    from .checkpoints import find_vocab_file, load_checkpoint
+    from .detect.db import load_db_checkpoint
+    from .detect.db.net import build_db_net
+    from .detect.db.train import DBTrainConfig, train_db
+    from .engine import RecognizerEngine
+    from .kernels import launch_counts, reset_launch_counts
+    from .tokenizer import CharTokenizer
+    from .train import sharded_ckpt as S
+    from .train import trainer as T
+
+    dev = P.process_device()
+    rank, world = P.process_info()
+    ckpt = MODELS / "model.safetensors"
+    d, crops = load_smoke_lines()
+    imgs, widths = d["imgs"], d["widths"]
+    model, cfg, meta = load_checkpoint(ckpt, device=dev)
+    vocab = find_vocab_file(meta.get("vocab_path", ""), str(ckpt))
+    tok = CharTokenizer(vocab, cfg)
+    tp = P.make_mesh(world, world)
+    out: Dict = {"rank": rank}
+    reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        eng = RecognizerEngine(model, cfg.replace(COMPUTE_DTYPE=dtype), tok,
+                               dev, mesh=tp)
+        out[dtype] = {
+            "batch": eng.recognize_batch(imgs, "ctc", widths),
+            "batch_decoder": eng.recognize_batch(imgs, "decoder", widths),
+            "crops": eng.recognize_crops(crops, "ctc")}
+    out["launches"] = launch_counts()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    eng.recognize_batch(imgs, "ctc", widths)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed_reps):
+        eng.recognize_batch(imgs, "ctc", widths)
+    sync()
+    out["tp_batch_ms"] = (time.perf_counter() - t0) * 1e3 / timed_reps
+    del eng
+
+    cfg32 = cfg.replace(COMPUTE_DTYPE="float32", DROPOUT=0.0)
+    batch = parallel_train_batch(tok, cfg32)
+
+    def trainer(mp):
+        fresh, _, _ = load_checkpoint(ckpt, device=dev)
+        return T.Trainer(cfg32, tok, T.TrainConfig(n_devices=world,
+                                                   model_parallel=mp),
+                         model=fresh, device=dev)
+
+    tr = trainer(1)
+    out["dp"] = [tr.run_step(batch) for _ in range(PAR_DP_STEPS)]
+    out["dp_state"] = {k: v.detach().cpu().numpy() for k, v in
+                       tr.model.state_dict().items()}
+    del tr
+    tr = trainer(world)
+    out["tp"] = [tr.run_step(batch) for _ in range(PAR_TP_STEPS)]
+    root = Path(tmp) / "sharded"
+    S.save_sharded(root, tr.model, cfg32, vocab_path=vocab,
+                   step=PAR_TP_STEPS, opt_state=tr.opt_state(whole=False))
+    local, _, _, opt = S.restore_sharded(root, mesh=tr.mesh,
+                                         with_opt_state=True, device=dev)
+    mine = tr.model.state_dict()
+    out["restored_shards_equal"] = all(
+        torch.equal(v, mine[k]) for k, v in local.state_dict().items())
+    own = tr.opt_state(whole=False)
+    out["restored_moments_equal"] = set(opt) == set(own) and all(
+        np.array_equal(opt[k].cpu().numpy(), own[k]) for k in own)
+    whole = tr.whole_model()
+    out["files"] = sorted(p.name for p in (root / "state").iterdir())
+    if rank == 0:
+        S.to_reference(root, Path(tmp) / "reference.safetensors")
+    out["tp_state"] = {k: v.detach().cpu().numpy()
+                       for k, v in whole.state_dict().items()}
+    del tr, whole, local
+
+    hist: List[Dict[str, float]] = []
+    train_db(DBTrainConfig(data_dir=det_dir, steps=1, batch_size=4,
+                           n_devices=world, log_every=0,
+                           out_dir=str(Path(tmp) / f"db{rank}")),
+             verbose=False, net=build_db_net(load_db_checkpoint(
+                 str(MODELS / "detector.safetensors"))), device=dev,
+             history=hist)
+    out["db"] = hist
+    return out

@@ -14,10 +14,22 @@ inference stem and has no gradient.
 Inference inside training (validation, the frozen encoder of decoder-only
 mode) runs the eval forward, whose stem is the CUDA kernel on the card.
 
-Differences from the JAX package: the train step runs on one device
-(``n_devices`` or ``model_parallel`` above 1 raise); parameters the loss
-never reaches (``lm_head``) get zero gradients so that AdamW still decays
-them, as optax does; a resumed ``train_loop`` restores the dropout generator
+More than one device (``n_devices``, ``model_parallel`` above 1) means one
+process per device, joined by ``kiri_tpu_torch.parallel.initialize`` (under
+``torchrun``): a (data, model) mesh as ``kiri_tpu``'s. Every rank takes the
+same global batch, pads it with zero rows to a multiple of the data axis
+and keeps its rows; the stem's BatchNorm statistics are the global batch's;
+the loss terms are sums over the rank's rows divided by global counts, so
+the gradients summed over the data axis are the global batch's, clipped by
+their global norm (shards' squares added over the model axis); dropout and
+decoder-input noise are drawn for the global batch from the one seeded
+generator and cut to the rank's rows (and heads or hidden slice under
+tensor parallelism). A data-parallel step is thus one device's step on the
+padded global batch. Rank 0 writes the checkpoints (gathered whole).
+
+Differences from the JAX package: parameters the loss never reaches
+(``lm_head``) get zero gradients so that AdamW still decays them, as optax
+does; a resumed ``train_loop`` restores the dropout generator
 and replays the epoch plans already trained, so a run resumed at an epoch
 boundary continues as the run that was not stopped (the JAX package starts
 both afresh); labels are replaced by their canonical text
@@ -29,26 +41,26 @@ import json
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel as P
 from ..checkpoints import load_state, read_checkpoint
 from ..config import CFG
 from ..device import no_tf32, resolve_device
-from ..models.layers import wide
+from ..models.layers import GlobalDraw, randint, rand, wide
 from ..models.recognizer import Recognizer
-from ..ops.ctc import ctc_loss
+from ..ops.ctc import ctc_loss_terms
 from ..ops.preprocess import (content_width, pick_width_bucket,
                               resize_keep_ratio_pad_np)
 from ..tokenizer import CharTokenizer
 from .checkpoints import load_opt_state, save_checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-MULTI_DEVICE = ("multi-GPU training is not ported yet (ROADMAP.md queue 1, "
-                "item 6); train on one card")
 
 
 @dataclass
@@ -90,11 +102,17 @@ def hybrid_loss(model: Recognizer, batch: Dict[str, torch.Tensor],
                 gen: Optional[torch.Generator], *, cfg: CFG,
                 dtype: torch.dtype, dec_pad: int, ctc_weight: float,
                 dec_weight: float, train_only: Optional[str] = None,
-                dec_input_noise: float = 0.0, dec_vocab: int = 0):
+                dec_input_noise: float = 0.0, dec_vocab: int = 0,
+                mesh=None):
     """ctc_weight * CTC + dec_weight * CE on a batch of device tensors
     (image [B, H, W] u8, ctc_target [B, Lc], ctc_len [B], dec_inp and
     dec_tgt [B, Ld]). Returns (loss, the stem's new running statistics or
     None, metrics as 0-d tensors).
+
+    Over ``mesh`` the batch is this rank's rows of the global batch: the
+    returned loss is this rank's term (its rows' sums over the global
+    counts; the terms of all ranks add up to the global loss) and the
+    metrics are the global batch's.
 
     ``train_only="decoder"`` runs the encoder in eval mode (running
     statistics, no dropout, the stem kernel on the card) without gradients
@@ -109,7 +127,7 @@ def hybrid_loss(model: Recognizer, batch: Dict[str, torch.Tensor],
         stats = None
     else:
         mem, stats = model.encode(batch["image"], dtype, train=True,
-                                  drop=cfg.DROPOUT, gen=gen)
+                                  drop=cfg.DROPOUT, gen=gen, mesh=mesh)
     b, t_mem, _ = mem.shape
     metrics = {}
     loss = torch.zeros((), dtype=torch.float32, device=mem.device)
@@ -117,18 +135,19 @@ def hybrid_loss(model: Recognizer, batch: Dict[str, torch.Tensor],
         logits = model.ctc_logits(mem, cfg.DROPOUT, gen)
         frame_lens = torch.full((b,), t_mem, dtype=torch.int64,
                                 device=mem.device)
-        l_ctc = ctc_loss(logits, frame_lens, batch["ctc_target"],
-                         batch["ctc_len"])
+        nll, count = ctc_loss_terms(logits, frame_lens, batch["ctc_target"],
+                                    batch["ctc_len"])
+        l_ctc = nll / P.data_sum_value(count, mesh).clamp(min=1)
         loss = loss + ctc_weight * l_ctc
         metrics["ctc_loss"] = l_ctc
 
     dec_inp = batch["dec_inp"]
     if dec_input_noise > 0.0 and dec_vocab > 3:
-        replace = (torch.rand(dec_inp.shape, generator=gen,
-                              device=dec_inp.device) < dec_input_noise)
+        replace = (rand(gen, dec_inp.shape, dec_inp.device)
+                   < dec_input_noise)
         replace &= dec_inp > 2
-        rand_ids = torch.randint(3, dec_vocab, dec_inp.shape, generator=gen,
-                                 device=dec_inp.device, dtype=dec_inp.dtype)
+        rand_ids = randint(gen, 3, dec_vocab, dec_inp.shape, dec_inp.device,
+                           dec_inp.dtype)
         dec_inp = torch.where(replace, rand_ids, dec_inp)
 
     memp = model.mem_project(mem)
@@ -137,10 +156,12 @@ def hybrid_loss(model: Recognizer, batch: Dict[str, torch.Tensor],
     ce = F.cross_entropy(dec_logits.flatten(0, 1), tgt.flatten(),
                          reduction="none").view(tgt.shape)
     mask = (tgt != dec_pad).float()
-    l_dec = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    l_dec = (ce * mask).sum() / P.data_sum_value(mask.sum(), mesh).clamp(
+        min=1.0)
     loss = loss + dec_weight * l_dec
     metrics["dec_loss"] = l_dec
     metrics["loss"] = loss
+    metrics = {k: P.data_sum_value(v, mesh) for k, v in metrics.items()}
     return loss, stats, metrics
 
 
@@ -179,14 +200,22 @@ def warmup_steps(tc: TrainConfig, total_steps: int) -> int:
     return min(tc.warmup_steps, max(1, total_steps // 10))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], limit: float
+def clip_by_global_norm(grads: List[torch.Tensor], limit: float,
+                        sharded: Sequence[bool] = (), mesh=None
                         ) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: where the norm is at least
     ``limit``, each gradient becomes (g / norm) * limit. Returns the norm
     before clipping, on the device (no host sync), in float32 (float64 in
-    a float64 run)."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(wide(g)) for g in grads]))
+    a float64 run). Over a ``mesh`` whose model axis splits the gradients
+    flagged in ``sharded``, their squares are added over the model axis."""
+    norms = torch.stack([torch.linalg.vector_norm(wide(g)) for g in grads])
+    if mesh is None or mesh.model_size == 1 or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        split = torch.tensor(list(sharded), device=norms.device)
+        sq = norms * norms
+        norm = torch.sqrt(sq[~split].sum()
+                          + P.model_sum_value(sq[split].sum(), mesh))
     under = norm < limit
     torch._foreach_div_(grads, torch.where(under, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(under, 1.0, limit))
@@ -305,16 +334,33 @@ def width_bucket_plan(rng: np.random.Generator, samples, cfg: CFG,
 # ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
+def train_mesh(tc: TrainConfig):
+    """The mesh of ``tc.n_devices`` (default: every rank) and
+    ``tc.model_parallel``, or None for one device. More than one device
+    needs the process group of ``parallel.initialize``."""
+    rank, world = P.process_info()
+    n = tc.n_devices if tc.n_devices is not None else world
+    if n == 1 and tc.model_parallel == 1:
+        return None
+    if world == 1:
+        raise RuntimeError(
+            f"n_devices={tc.n_devices}, model_parallel={tc.model_parallel}: "
+            "training on more than one device runs one process per device; "
+            "call kiri_tpu_torch.parallel.initialize() in each (or start "
+            "the run with torchrun --nproc-per-node N)")
+    return P.make_mesh(n, tc.model_parallel)
+
+
 class Trainer:
-    """Recognizer training on one device. ``device=None`` means the card;
-    the model is made from scratch (``Recognizer.init_weights``, seeded by
-    ``tc.seed``) unless one is given."""
+    """Recognizer training on one device, or on a mesh of ranks (see the
+    module's docstring). ``device=None`` means the card; the model is made
+    from scratch (``Recognizer.init_weights``, seeded by ``tc.seed``) unless
+    one is given."""
 
     def __init__(self, cfg: CFG, tok: CharTokenizer, tc: TrainConfig,
                  model: Optional[Recognizer] = None,
                  total_steps: int = 10000, device=None):
-        if (tc.n_devices or 1) > 1 or tc.model_parallel > 1:
-            raise NotImplementedError(MULTI_DEVICE)
+        self.mesh = train_mesh(tc)
         self.cfg, self.tok, self.tc = cfg, tok, tc
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.COMPUTE_DTYPE]
@@ -323,6 +369,9 @@ class Trainer:
             model = Recognizer(cfg, tok.vocab_size).init_weights(
                 torch.Generator().manual_seed(tc.seed))
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            self.model = P.shard_variables(self.model, self.mesh)
+        specs = getattr(self.model, "shard_specs", {})
         decoder_only = tc.train_only == "decoder"
         self.trained: List[Tuple[str, torch.nn.Parameter]] = []
         for name, p in self.model.named_parameters():
@@ -333,6 +382,8 @@ class Trainer:
                 # gradient, optax decays it.
                 p.grad = torch.zeros_like(p)
                 self.trained.append((name, p))
+        self.sharded = [specs.get(n, P.Spec(())).dim is not None
+                        and self.mesh.model_size > 1 for n, _ in self.trained]
         self.optimizer = make_optimizer([p for _, p in self.trained], tc,
                                         self.device)
         self.schedule = onecycle_schedule(total_steps, tc.lr,
@@ -351,22 +402,40 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items() if k != "text"}
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def run_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One step on a ``collate`` batch (its forward and backward with
         TF32 off); returns its metrics (loss, ctc_loss, dec_loss, grad_norm
-        before clipping)."""
+        before clipping). Over a mesh every rank passes the same global
+        batch."""
         lr = float(np.float32(self.schedule(self.step)))
-        tok, tc = self.tok, self.tc
+        tok, tc, mesh = self.tok, self.tc, self.mesh
+        gen = self.gen
+        if mesh is not None:
+            if mesh.data_size > 1:
+                batch, _ = P.pad_batch_to_devices(batch, mesh)
+            n = len(batch["image"])
+            lo, hi = P.local_batch_slice(n, mesh)
+            batch = P.shard_batch_global(batch, mesh)
+            gen = GlobalDraw(self.gen, lo, hi, n, mesh.model_index,
+                             mesh.model_size)
         with no_tf32():
             loss, stats, metrics = hybrid_loss(
-                self.model, self.to_device(batch), self.gen, cfg=self.cfg,
+                self.model, self.to_device(batch), gen, cfg=self.cfg,
                 dtype=self.dtype, dec_pad=tok.dec_pad,
                 ctc_weight=tc.ctc_weight, dec_weight=tc.dec_weight,
                 train_only=tc.train_only,
-                dec_input_noise=tc.dec_input_noise, dec_vocab=tok.dec_vocab)
+                dec_input_noise=tc.dec_input_noise, dec_vocab=tok.dec_vocab,
+                mesh=mesh)
             loss.backward()
         grads = [p.grad for _, p in self.trained]
-        metrics["grad_norm"] = clip_by_global_norm(grads, tc.grad_clip)
+        P.sync_gradients(grads, mesh, self.sharded)
+        metrics["grad_norm"] = clip_by_global_norm(grads, tc.grad_clip,
+                                                   self.sharded, mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -416,7 +485,8 @@ class Trainer:
 
             if self._engine is None:
                 self._engine = RecognizerEngine(self.model, self.cfg,
-                                                self.tok, self.device)
+                                                self.tok, self.device,
+                                                mesh=self.mesh)
             results = self._engine.recognize_batch(
                 np.concatenate(ar_imgs, axis=0), "decoder")
             ar_correct = sum(int(hyp == ref) for (hyp, _), ref
@@ -428,28 +498,56 @@ class Trainer:
         return acc
 
     # ----------------------------------------------------------- checkpoints
-    def opt_state(self) -> Dict[str, np.ndarray]:
-        """The AdamW state by torch name, and the dropout generator's."""
+    def opt_state(self, whole: bool = True) -> Dict[str, np.ndarray]:
+        """The AdamW state by torch name, and the dropout generator's; over
+        a mesh with ``whole`` the moments of sharded parameters are gathered
+        whole (a collective of the model axis: every rank calls it)."""
         out = {"__generator__": self.gen.get_state().numpy()}
-        for name, p in self.trained:
+        specs = getattr(self.model, "shard_specs", {})
+        for (name, p), split in zip(self.trained, self.sharded):
             st = self.optimizer.state.get(p)
             if st:
                 for k in ("step", "exp_avg", "exp_avg_sq"):
-                    out[f"{name}.{k}"] = st[k].detach().float().cpu().numpy()
+                    v = st[k].detach().float()
+                    if split and whole and k != "step":
+                        v = P.join_shards(P.gather_tensor(
+                            v, self.mesh.model_group, self.mesh.model_size,
+                            self.mesh.model_index), specs[name])
+                    out[f"{name}.{k}"] = v.cpu().numpy()
         return out
 
+    def whole_model(self) -> Recognizer:
+        """The model with whole parameters (gathered over the model axis:
+        every rank calls it)."""
+        if self.mesh is None or self.mesh.model_size == 1:
+            return self.model
+        return P.gather_variables(self.model, self.mesh)
+
     def save(self, path, vocab_path: str = "") -> None:
-        save_checkpoint(path, self.model, self.cfg, vocab_path=vocab_path,
+        """Write a checkpoint; over a mesh every rank calls it (the shards
+        are gathered) and rank 0 writes."""
+        model, opt = self.whole_model(), self.opt_state()
+        if not self.is_writer:
+            return
+        save_checkpoint(path, model, self.cfg, vocab_path=vocab_path,
                         epoch=self.epoch, step=self.step,
-                        best_val_acc=self.best_val_acc,
-                        opt_state=self.opt_state())
+                        best_val_acc=self.best_val_acc, opt_state=opt)
+
+    def _local(self, name: str, value) -> torch.Tensor:
+        """This rank's shard of a whole tensor of parameter ``name``."""
+        t = torch.as_tensor(value)
+        specs = getattr(self.model, "shard_specs", None)
+        if not specs or self.mesh.model_size == 1:
+            return t
+        return P.local_shard(t, specs[name], self.mesh.model_index,
+                             self.mesh.model_size)
 
     def load_weights(self, path) -> None:
         """Copy a recognizer file's tensors (any format of
         ``checkpoints.load_checkpoint``, read over this trainer's config)
-        into the model, in place."""
+        into the model, in place (this rank's shards over a mesh)."""
         sd, _, _ = read_checkpoint(path, self.cfg)
-        load_state(self.model, sd)
+        load_state(self.model, {k: self._local(k, v) for k, v in sd.items()})
 
     def resume(self, path) -> bool:
         """Weights, counters, AdamW moments (where the file beside it holds
@@ -470,12 +568,13 @@ class Trainer:
         state = {}
         for i, (name, prm) in enumerate(self.trained):
             keys = [f"{name}.{k}" for k in ("step", "exp_avg", "exp_avg_sq")]
-            if (not all(k in saved for k in keys)
-                    or saved[keys[1]].shape != tuple(prm.shape)):
+            if not all(k in saved for k in keys):
+                return True
+            m1, m2 = (self._local(name, saved[k]) for k in keys[1:])
+            if tuple(m1.shape) != tuple(prm.shape):
                 return True
             state[i] = {"step": torch.tensor(float(saved[keys[0]])),
-                        "exp_avg": torch.from_numpy(saved[keys[1]]),
-                        "exp_avg_sq": torch.from_numpy(saved[keys[2]])}
+                        "exp_avg": m1, "exp_avg_sq": m2}
         sd = self.optimizer.state_dict()
         self.optimizer.load_state_dict({"state": state,
                                         "param_groups": sd["param_groups"]})
@@ -499,6 +598,7 @@ def train_loop(cfg: CFG, tok: CharTokenizer, tc: TrainConfig,
         np.random.default_rng(tc.seed), train_samples, cfg, tc.batch_size)))
     total_steps = steps_per_epoch * tc.epochs
     trainer = Trainer(cfg, tok, tc, total_steps=total_steps, device=device)
+    verbose = verbose and trainer.is_writer
 
     out = Path(tc.out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -579,6 +679,7 @@ def train_loop(cfg: CFG, tok: CharTokenizer, tc: TrainConfig,
         trainer.epoch = epoch + 1
         trainer.save(out / f"model_epoch_{epoch + 1}.safetensors", vocab_path)
         trainer.save(latest, vocab_path)
-        (out / "history.json").write_text(json.dumps(trainer.history,
-                                                     indent=2))
+        if trainer.is_writer:
+            (out / "history.json").write_text(json.dumps(trainer.history,
+                                                         indent=2))
     return trainer

@@ -167,10 +167,15 @@ def imread_gray(path: Union[str, Path]) -> np.ndarray:
     "L")`` gives it: grey kept, alpha dropped, colour (and palette) through
     Pillow's fixed-point luma. PNG is decoded here; other files need PIL.
     Raises when the file cannot be read."""
+    with open(path, "rb") as f:
+        return decode_gray(f.read(), str(path))
+
+
+def decode_gray(data: bytes, name: str = "image") -> np.ndarray:
+    """``imread_gray`` of a file's bytes (``name`` is what an error names):
+    PNG decoded here, any other format through PIL where it imports."""
     from ..ops.imgproc import pil_gray
 
-    with open(path, "rb") as f:
-        data = f.read()
     if data[:8] == PNG_SIGNATURE:
         try:
             samples = read_png(data)
@@ -182,7 +187,9 @@ def imread_gray(path: Union[str, Path]) -> np.ndarray:
     try:
         image = importlib.import_module("PIL.Image")
     except ImportError:
-        raise RuntimeError(f"cannot read {path}: the port reads 8-bit PNG "
+        raise RuntimeError(f"cannot read {name}: the port reads 8-bit PNG "
                            "files itself; any other file needs PIL") from None
-    with image.open(path) as im:
+    import io
+
+    with image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("L"), dtype=np.uint8)

@@ -139,3 +139,35 @@ def test_onnx_and_kiriocr_entry_points_refuse_cpu_fallback(monkeypatch,
                  lambda: KiriOCR.from_checkpoint(ckpt)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_parallel_modules_are_covered():
+    """The multi-device slice's modules are among those imported above, and
+    ``datasets`` is imported only inside the HF loader."""
+    mods = set(_port_modules())
+    assert {"kiri_tpu_torch.parallel", "kiri_tpu_torch.parallel.launch",
+            "kiri_tpu_torch.train.sharded_ckpt",
+            "kiri_tpu_torch.entry"} <= mods
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            if isinstance(node, ast.Import) or (
+                    isinstance(node, ast.ImportFrom) and node.level == 0):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any(str(n).split(".")[0] == "datasets"
+                               for n in names), path
+
+
+def test_parallel_entry_points_refuse_cpu_fallback(monkeypatch):
+    """``parallel.initialize``, ``entry`` and ``dryrun_multichip`` with no
+    device mean the card; the engine's and trainer's ``mesh`` paths keep
+    their ``device`` rule."""
+    from kiri_tpu_torch import parallel
+    from kiri_tpu_torch.entry import dryrun_multichip, entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: parallel.initialize("127.0.0.1:1", 1, 0),
+                 entry, lambda: dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

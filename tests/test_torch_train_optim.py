@@ -225,7 +225,9 @@ def test_unreached_lm_head_decays(run_step_pair):
 
 
 def test_multi_device_raises(tmp_path):
+    """More than one device is one process per device: without the process
+    group of ``parallel.initialize`` the trainer says so."""
     _, cfg, _, tok = both(tmp_path)
     for kw in ({"n_devices": 2}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(RuntimeError, match="parallel.initialize"):
             T.Trainer(cfg, tok, T.TrainConfig(**kw), device="cpu")
