@@ -34,7 +34,29 @@
    kernel's linear resize; float32 texts equal the stored ones); and "beam"
    under ``SPEC_BEAM=True`` (the step-loop beam's texts, with LM fusion on,
    where no line certifies, and off, where most do);
-5. the pages phase: ``OCR`` on the card with both committed checkpoints
+5. the int8 phase (``ops/quant8.Q8Encoder``, ``kernels/quant8.py``):
+   (a) ``q8_conv3x3`` (``csrc/q8_conv.cu``) on each of the stem's four
+   convs at batch 128 x 48 x 640 and 3 x 48 x 160, and ``q8_linear``
+   (``csrc/q8_gemm.cu``) on the encoder's four matmul shapes at M = 20,480
+   and 37, in bfloat16 and float32 on calibrated scales: each output
+   identical to its plain version's (the epilogues use no FMA, SiLU is
+   PyTorch's formula), or within 1 ulp of the dtype, which the line names;
+   (b) float32 on ``kiri_tpu``'s stored scales
+   (``kiri_tpu_torch/assets/smoke_q8.npz``, ``convert.q8_scales_from_jax``)
+   for ``parts`` {stem}, {stem, attn, ffn} and {attn, ffn}: the greedy CTC
+   texts of the 64 smoke lines equal ``kiri_tpu``'s stored texts, and the
+   port's own calibration on lines 0-31 within 1e-5 relative of the stored
+   scales; (c) bf16 on its own calibration: each set's CER per script
+   within 0.02 and its text CER against the port's own bf16 path at most
+   max(0.0005, ``kiri_tpu``'s own + 0.0005); (d) each kernel launch by
+   launch at the main path's shapes (kernel, plain version, bound from
+   1979 TOPS int8 and 3.35 TB/s, cuDNN bf16 convolution + bias + SiLU,
+   im2col + ``torch._int_mm``, ``torch._int_mm`` + dequant for the
+   matmuls) and encode + CTC at batch 128 for the reference path and the
+   three sets, with the card's name and power limit; (e) every int8 run
+   with the counters at 0, launching ``q8_conv3x3`` (stem sets) and
+   ``q8_linear`` (encoder sets);
+6. the pages phase: ``OCR`` on the card with both committed checkpoints
    (``models/model.safetensors``, ``models/detector.safetensors``) over the
    committed pages (``kiri_tpu_torch/assets/smoke_pages.npz``), each run with
    the counters at 0: the DB u16 map of the stored page within 8 counts of
@@ -51,7 +73,7 @@
    ``extract_text``, ms per stage, the detection split, the DB forward per
    canvas bucket and the device's busy share of a page, each with the
    card's name and power limit;
-6. the rotated-pages phase, with ``models/craft.safetensors`` too, over
+7. the rotated-pages phase, with ``models/craft.safetensors`` too, over
    the committed pages and their three rotated pages (each run with the
    counters at 0): CRAFT's float16 region and affinity maps of two stored
    pages within 2 float16 steps of kiri_tpu's, its quads on all twelve
@@ -70,7 +92,7 @@
    and 8, device ms, peak memory, cuDNN FFT share), the host ms of the
    deskew stages, pages/s of ``process_documents`` for CRAFT and for DB +
    deskew, and the device's busy share of a page;
-7. the legacy and word-level phase (each run with the counters at 0): the
+8. the legacy and word-level phase (each run with the counters at 0): the
    classic-CV detector's lines, words, blocks, characters and
    ``detect_all`` on the thirteen stored pages (the twelve above and a
    tinted colour page), legacy + deskew on the rotated pages and blocks
@@ -85,7 +107,7 @@
    the in-process ``extract_text``; ``create_report``'s embedded PNG. Then
    the detector's host ms by stage, pages/s of ``process_documents`` for
    legacy lines and for words, and the device's busy share of a page;
-8. the training phase (each run with the counters at 0), from the committed
+9. the training phase (each run with the counters at 0), from the committed
    checkpoints and ``kiri_tpu_torch/assets/smoke_train.npz``: (a) the
    recognizer's float32 step 0 on 32 smoke lines (DROPOUT 0): its loss,
    CTC and CE losses within 1e-4 relative (gradient norm 1e-3) of
@@ -109,7 +131,7 @@
    It prints the trainer's steps/s and lines/s, host ms of ``collate`` and
    of the step, the device's busy share of a step, peak memory, and the
    detector trainers' steps/s;
-9. the generators phase, against ``kiri_tpu``'s answers in
+10. the generators phase, against ``kiri_tpu``'s answers in
    ``kiri_tpu_torch/assets/smoke_gen.npz`` (``scripts/make_torch_smoke_gen.py``),
    with font discovery off (the pseudo-glyph pool, as the fixture was
    drawn), each device run with the counters at 0: (a) 64 augmented lines
@@ -137,7 +159,7 @@
    steps/s pooled and with ``pool_size=0`` and ``make_batch``'s share of
    a step, and pages/s of ``eval_condition``, each with the card's name
    and power limit;
-10. the model-files phase, against ``kiri_tpu``'s answers in
+11. the model-files phase, against ``kiri_tpu``'s answers in
    ``kiri_tpu_torch/assets/smoke_models.npz``
    (``scripts/make_torch_smoke_models.py``), each device run with the
    counters at 0: (a) ``models/model.safetensors`` written as an F16
@@ -164,7 +186,7 @@
    ``kiri_tpu``'s, and the bf16 Khmer cluster and codepoint CER of "ctc",
    "decoder" and "beam". The Hugging Face hub is not driven (the machine
    has no network; only local paths are passed);
-11. the parallel phase (one card: ``kiri_tpu_torch.parallel``): (a) NCCL
+12. the parallel phase (one card: ``kiri_tpu_torch.parallel``): (a) NCCL
    at world size 1 in this process (``parallel.initialize``, an all-reduce
    on the card, ``make_mesh(1, 1)``): ``RecognizerEngine(mesh=)`` gives the
    single-device engine's texts and confidences exactly on the 64 smoke
@@ -189,7 +211,7 @@
    not); it prints the phase's wall time and the per-rank ms of a TP-2
    bf16 "ctc" ``recognize_batch`` against the single card, with the card's
    name and power limit;
-12. prints one throughput line per method, one line per streamed method with
+13. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -216,6 +238,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BF16 = 989e12        # FLOP/s, tensor cores
 PEAK_F32 = 67e12          # FLOP/s, CUDA cores
 PEAK_TF32 = 495e12        # FLOP/s, tensor cores
+PEAK_INT8 = 1979e12       # OP/s, tensor cores
 F32X3_PASSES = 3          # TF32 products a float32 one takes (3xTF32)
 PEAK_BYTES = 3.35e12      # B/s, HBM3
 
@@ -231,6 +254,10 @@ TOL_STEM_BF16_REL = 2.0 ** -5
 # the output scale) does not pass under the scale of the largest.
 TOL_STEM_BF16_ELEM = 2.0 ** -6
 TOL_PRE = 2e-3            # normalized units; ~0.26 of a u8 grey level
+# The port's float32 calibration against kiri_tpu's stored scales: channel
+# and tensor abs-maxes after float32 sums taken in another order.
+TOL_Q8_CALIB = 1e-5
+Q8_TEXT_CER = 0.0005      # int8 against bf16 texts, tests/test_quant8.py
 CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" and "beam"
 CER_MAX_DECODER = 0.03    # ... and its "decoder" row
 TOL_CONF_F32 = 1e-3       # float32 confidences against kiri_tpu's
@@ -923,6 +950,338 @@ def spec_beam_phase(d, model, cfg32, tok, eng32, drive):
           f"f32 SPEC_BEAM, USE_LM_FUSION_EVAL=False: {same}/{len(imgs)} texts"
           f" equal the step-loop beam's; {spec.certified_rows} lines "
           f"certified")
+
+
+def _ulps(torch, got, want):
+    """Each element's distance from ``want`` in steps of ``want``'s dtype
+    (float32: 2^-23, bfloat16: 2^-7 of the power of two below |want|)."""
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    w = want.float().abs()
+    _, e = torch.frexp(torch.where(w > 0, w, torch.full_like(w, 2.0 ** -126)))
+    return (got.float() - want.float()).abs() / torch.ldexp(
+        torch.ones_like(w), e - 1 - bits)
+
+
+def _hold_q8(torch, got, want, what):
+    """Holds a q8 kernel's output to its plain version's: identical, or
+    within 1 ulp of the dtype. Returns (max |diff|, identical)."""
+    same = bool(torch.equal(got, want))
+    ulps = float(_ulps(torch, got, want).max()) if got.numel() else 0.0
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    how = ("identical to the plain version" if same else
+           f"max {ulps:.2f} ulps of {want.dtype} from the plain version "
+           f"(tol 1)")
+    check(got.shape == want.shape and (same or ulps <= 1.0)
+          and bool(got.float().isfinite().all()),
+          f"{what}: {how}, max |diff| {err:.3e}")
+    return err, same
+
+
+def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
+    """The int8 fast path (``ops/quant8.Q8Encoder``): (a) each kernel against
+    its plain version on the card (the stem's four convs at batch 128 x
+    48 x 640 and at batch 3 x 48 x 160, the four encoder matmuls at M =
+    20,480 and 37, float32 and bfloat16), timed with the plain version, the
+    bound and the library yardsticks; (b) float32 texts on kiri_tpu's stored
+    scales against its stored texts, and the port's own calibration against
+    those scales; (c) bf16 on the port's own calibration: CER against the
+    ground truth and the text CER against its own reference path; (d)
+    encode + CTC at batch 128 for the reference path and the three sets;
+    (e) each int8 run through ``drive``. Returns the two kernels' entries."""
+    from kiri_tpu_torch.convert import q8_scales_from_jax
+    from kiri_tpu_torch.kernels.quant8 import (q8_conv3x3, q8_conv3x3_plain,
+                                               q8_linear, q8_linear_plain,
+                                               quantize)
+    from kiri_tpu_torch.kernels.stem import STRIDES
+    from kiri_tpu_torch.ops.preprocess import normalize_u8
+    from kiri_tpu_torch.ops.quant8 import Q8Encoder
+    from kiri_tpu_torch.smoke import load_smoke_q8, q8_scales
+
+    F = torch.nn.functional
+    t_phase = time.perf_counter()
+    stored = load_smoke_q8()
+    imgs = d["imgs"]
+    texts = [str(t) for t in d["texts"]]
+    is_kh = [any(0x1780 <= ord(c) <= 0x17FF for c in t) for t in texts]
+    cfg32 = cfg.replace(COMPUTE_DTYPE="float32")
+    cfg16 = cfg.replace(COMPUTE_DTYPE="bfloat16")
+    sets = (("stem",), ("stem", "attn", "ffn"), ("attn", "ffn"))
+
+    def needs(parts):
+        return (("q8_conv3x3",) if "stem" in parts else ()) + (
+            ("q8_linear",) if {"attn", "ffn"} & set(parts) else ())
+
+    def read(ctc):
+        return tok.decode_ctc_batch(ctc.argmax(-1).cpu().numpy())
+
+    # (b) float32 on kiri_tpu's stored scales.
+    for parts in sets:
+        key = "_".join(parts)
+        q = Q8Encoder(model, cfg32, parts=parts, device="cuda")
+        q.scales = q8_scales_from_jax(q8_scales(stored, parts))
+        hyp = drive(f"q8 f32 {key}", lambda: read(q(imgs)[1]), needs(parts))
+        want = [str(t) for t in stored[f"{key}_texts_f32"]]
+        diff = [(i, h, w) for i, (h, w) in enumerate(zip(hyp, want))
+                if h != w]
+        check(not diff, f"q8 f32 {key} on kiri_tpu's scales: "
+              f"{len(hyp) - len(diff)}/{len(hyp)} texts equal kiri_tpu's"
+              + (f"; first differences {diff[:3]}" if diff else ""))
+    # The port's own float32 calibration against the stored scales.
+    for parts in sets:
+        key = "_".join(parts)
+        q = Q8Encoder(model, cfg32, parts=parts, device="cuda")
+        q.calibrate(imgs[:32])
+        js = q8_scales_from_jax(q8_scales(stored, parts))
+        pairs = [(js["enc"], q.scales["enc"])] if js["enc"] else []
+        pairs += [(j[n], t[n]) for j, t in zip(js["stem"], q.scales["stem"])
+                  for n in ("inv", "ws")]
+        rel = [float(np.max(np.abs(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))
+                            / np.abs(np.asarray(a, np.float64))))
+               for a, b in pairs]
+        moved = sum(int((j["wq"] != t["wq"]).sum())
+                    for j, t in zip(js["stem"], q.scales["stem"]))
+        check(len(q.scales["enc"]) == len(js["enc"])
+              and len(q.scales["stem"]) == len(js["stem"])
+              and max(rel) <= TOL_Q8_CALIB,
+              f"q8 f32 {key}: calibrate on lines 0-31 within {max(rel):.3e} "
+              f"relative of kiri_tpu's stored scales (tol {TOL_Q8_CALIB:g}); "
+              f"{moved} folded int8 stem weights moved")
+
+    # (c) bf16 on the port's own calibration.
+    q16 = {}
+    for parts in sets:
+        key = "_".join(parts)
+        q = q16[parts] = Q8Encoder(model, cfg16, parts=parts, device="cuda")
+        q.calibrate(imgs[:32])
+        hyp = drive(f"q8 bf16 {key}", lambda: read(q(imgs)[1]), needs(parts))
+        ref = read(q.bf16(imgs)[1])
+        kh = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if k])
+        en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if not k])
+        vs_ref = (sum(lev(a, b) for a, b in zip(hyp, ref))
+                  / sum(max(1, len(b)) for b in ref))
+        bound = max(Q8_TEXT_CER, float(stored[f"{key}_cer_bf16"])
+                    + Q8_TEXT_CER)
+        check(kh <= CER_MAX and en <= CER_MAX and vs_ref <= bound,
+              f"q8 bf16 {key}: Khmer CER {kh:.4f}, English CER {en:.4f} "
+              f"(max {CER_MAX}); text CER against the port's bf16 path "
+              f"{vs_ref:.5f} (max {bound:.5f}: kiri_tpu's own "
+              f"{float(stored[f'{key}_cer_bf16']):.5f} + {Q8_TEXT_CER}); "
+              f"{sum(a == b for a, b in zip(hyp, ref))}/{len(ref)} texts "
+              f"equal")
+
+    # (a) kernels against their plain versions, on the calibrated scales.
+    u8 = torch.from_numpy(np.resize(imgs, (BATCH,) + imgs.shape[1:])).cuda()
+    q32 = Q8Encoder(model, cfg32, device="cuda")
+    q32.calibrate(imgs[:32])
+    errs, same, rows = [], [], {}
+
+    def conv_args(q, i, x):
+        run, p = q._runtime(), q.pack["stem"][i]
+        if i == 0:
+            return ((x, p["w"], run["conv0"], p["b"], STRIDES[0]),
+                    {"corr": q._correction(*x.shape[1:]),
+                     "out_dtype": q.dtype})
+        s = run["stem"][i - 1]
+        return (x, s["wq"], s["ws"], p["b"], STRIDES[i]), {"inv": s["inv"]}
+
+    with torch.inference_mode():
+        for q in (q16[sets[1]], q32):
+            name = "bf16" if q.dtype == torch.bfloat16 else "f32"
+            for n, w in ((BATCH, 640), (3, 160)):
+                x = u8[:n, :, :w].contiguous()
+                for i in range(4):
+                    args, kw = conv_args(q, i, x)
+                    got = q8_conv3x3(*args, **kw)
+                    e, s = _hold_q8(torch, got, q8_conv3x3_plain(*args, **kw),
+                                    f"q8_conv3x3 {name} conv{i} B={n} W={w}")
+                    errs.append(e)
+                    same.append(s)
+                    if n == BATCH and name == "bf16":
+                        rows[f"conv{i}"] = (args, kw, got)
+                    x = got
+            rng = np.random.default_rng(0)
+            layer = q.pack["enc"][0]
+            run = q._runtime()["enc"][0]
+            for gname, k in (("qkv", 256), ("wo", 256), ("lin1", 256),
+                             ("lin2", 1024)):
+                for m in (BATCH * 160, 37):
+                    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(
+                        np.float32)).cuda().to(q.dtype)
+                    inv, sc = run[gname]
+                    args = (x, inv, layer[gname]["w"], sc, layer[gname]["b"])
+                    got = q8_linear(*args)
+                    e, s = _hold_q8(torch, got, q8_linear_plain(*args),
+                                    f"q8_linear {name} {gname} M={m} K={k}")
+                    errs.append(e)
+                    same.append(s)
+                    if m == BATCH * 160 and name == "bf16":
+                        rows[gname] = args
+        print(f"q8 kernels: {sum(same)}/{len(same)} outputs identical to "
+              f"the plain versions' (the epilogues take no FMA), the rest "
+              f"within 1 ulp", flush=True)
+
+        # (d) timing, launch by launch at the main path's shapes (bf16).
+        def conv_row(i):
+            args, kw, out = rows[f"conv{i}"]
+            x, wq, _, _, (sh, sw) = args
+            b, h, w = x.shape[:3]
+            cin, cout = (1 if i == 0 else x.shape[3]), wq.shape[0]
+            ho, wo = out.shape[1:3]
+            ops = 2.0 * b * ho * wo * cout * 9 * cin
+            nbytes = (x.numel() * x.element_size()
+                      + out.numel() * out.element_size() + wq.numel()
+                      + 4 * 3 * cout + (4 * ho * wo * cout if i == 0 else 0))
+            xf = (normalize_u8(x, torch.bfloat16).unsqueeze(1) if i == 0
+                  else x.permute(0, 3, 1, 2))
+            wf = q.pack["stem"][i]["wf"]
+            oihw = wf.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).to(
+                torch.bfloat16).contiguous()
+            bias16 = args[3].to(torch.bfloat16)
+
+            def cudnn():
+                return F.silu(F.conv2d(xf, oihw, bias16, stride=(sh, sw),
+                                       padding=1))
+            xi = (x.to(torch.int16) - 128).to(torch.int8).unsqueeze(-1) \
+                if i == 0 else None
+            kpad = -(-9 * cin // 8) * 8
+            wpad = F.pad(wq, (0, kpad - 9 * cin)).contiguous()
+
+            def im2col_int_mm():
+                xq = xi if i == 0 else quantize(x, kw["inv"])
+                xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+                cols = torch.cat([xp[:, dy:dy + sh * (ho - 1) + 1:sh,
+                                     dx:dx + sw * (wo - 1) + 1:sw]
+                                  for dy in range(3) for dx in range(3)], -1)
+                cols = F.pad(cols.reshape(-1, 9 * cin), (0, kpad - 9 * cin))
+                y = torch._int_mm(cols, wpad.t()).float() * args[2]
+                if i == 0:
+                    y = y + kw["corr"].reshape(-1, cout).repeat(b, 1)
+                return F.silu(y + args[3]).to(torch.bfloat16)
+            return {"ms": time_ms(torch, lambda: q8_conv3x3(*args, **kw)),
+                    "plain_ms": time_ms(torch, lambda: q8_conv3x3_plain(
+                        *args, **kw), iters=5),
+                    "ops": ops, "bytes_in": x.numel() * x.element_size(),
+                    "bytes_out": out.numel() * out.element_size(),
+                    "bytes_weights": nbytes - x.numel() * x.element_size()
+                    - out.numel() * out.element_size(),
+                    "bound_ms": max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
+                    * 1e3,
+                    "bound_by": ("operations" if ops / PEAK_INT8
+                                 >= nbytes / PEAK_BYTES else "bytes"),
+                    "library_ms": time_ms(torch, cudnn),
+                    "int_mm_ms": time_ms(torch, im2col_int_mm, iters=5),
+                    "shape": f"{tuple(x.shape)} {x.dtype} -> "
+                             f"{tuple(out.shape)} bf16, K={9 * cin}"}
+
+        def gemm_row(gname):
+            x, inv, wq, sc, bias = rows[gname]
+            m, k = x.shape
+            n = wq.shape[0]
+            ops = 2.0 * m * n * k
+            nbytes = 2 * (m * k + m * n) + n * k + 8 * n
+
+            def lib():
+                acc = torch._int_mm(quantize(x, inv), wq.t())
+                return (acc.float() * sc + bias).to(x.dtype)
+            return {"ms": time_ms(torch, lambda: q8_linear(*rows[gname])),
+                    "plain_ms": time_ms(torch, lambda: q8_linear_plain(
+                        *rows[gname]), iters=5),
+                    "bound_ms": max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
+                    * 1e3,
+                    "bound_by": ("operations" if ops / PEAK_INT8
+                                 >= nbytes / PEAK_BYTES else "bytes"),
+                    "library_ms": time_ms(torch, lib),
+                    "shape": f"bf16 [{m},{k}] x int8 [{n},{k}]"}
+
+        q = q16[sets[1]]
+        conv_rows = {f"conv{i}": conv_row(i) for i in range(4)}
+        gemm_rows = {g: gemm_row(g) for g in ("qkv", "wo", "lin1", "lin2")}
+        del rows
+        for name, r in {**conv_rows, **gemm_rows}.items():
+            print(f"q8 {name} ({r['shape']}): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+                  f"ms ({r['bound_by']}), library "
+                  + f"{r['library_ms']:.4f}"
+                  + (f", im2col + _int_mm {r['int_mm_ms']:.4f}"
+                     if "int_mm_ms" in r else "")
+                  + f" ms; {card}", flush=True)
+
+        # encode + CTC at batch 128, device-resident: ms a batch, lines/s.
+        def per_batch(fn, reps=10):
+            for _ in range(2):
+                fn(u8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [fn(u8)[1].argmax(-1) for _ in range(reps)]
+            torch.cuda.synchronize()
+            del out
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        def busy(fn, match):
+            """The device's busy ms a batch under the profiler, and the ms
+            of the kernels whose name holds ``match``."""
+            return host_and_device_ms(torch, lambda: fn(u8), 5, match)[1:]
+
+        ms_ref = per_batch(q16[sets[0]].bf16)
+        dev, stem_ms = busy(q16[sets[0]].bf16, "stem")
+        print(f"q8 encode + CTC (bf16, batch {BATCH}, 48 x 640, "
+              f"device-resident, host clock): reference path {ms_ref:.2f} "
+              f"ms ({BATCH / ms_ref * 1e3:.1f} lines/s; device busy "
+              f"{dev:.2f} ms, the stem kernels {stem_ms:.2f} ms); {card}",
+              flush=True)
+        for parts in sets:
+            ms = per_batch(q16[parts])
+            dev, q8_ms = busy(q16[parts], "q8_")
+            print(f"q8 encode + CTC int8 {'_'.join(parts)}: {ms:.2f} ms "
+                  f"({BATCH / ms * 1e3:.1f} lines/s, {ms_ref / ms:.2f}x the "
+                  f"reference path; device busy {dev:.2f} ms, the q8 "
+                  f"kernels {q8_ms:.2f} ms)", flush=True)
+    # The plain versions' float64 im2col buffers (GBs at batch 128) stay in
+    # the caching allocator otherwise, where later phases cannot reuse them
+    # and the parallel phase's ranks on this card then find no memory.
+    del q16, q32, u8
+    torch.cuda.empty_cache()
+    print(f"q8 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def total(rs, key):
+        return sum(r[key] for r in rs.values())
+
+    # The stem as one function, as the stems' entries count it: its u8
+    # input, its output and the weights moved once.
+    stem_ops = sum(r["ops"] for r in conv_rows.values())
+    stem_bytes = (conv_rows["conv0"]["bytes_in"]
+                  + conv_rows["conv3"]["bytes_out"]
+                  + sum(r["bytes_weights"] for r in conv_rows.values()))
+    common = {"route": "cuda", "launches": 0, "max_abs_err": max(errs),
+              "identical_to_plain": f"{sum(same)}/{len(same)} outputs"}
+    return [{
+        "name": "q8_conv3x3", **common,
+        "source": "kiri_tpu_torch/kernels/csrc/q8_conv.cu",
+        "replaces": "kiri_tpu/ops/quant8.py:149-153,167-170",
+        "ms": total(conv_rows, "ms"), "plain_ms": total(conv_rows, "plain_ms"),
+        "bound_ms": max(stem_ops / PEAK_INT8, stem_bytes / PEAK_BYTES) * 1e3,
+        "bound_by": ("operations" if stem_ops / PEAK_INT8
+                     >= stem_bytes / PEAK_BYTES else "bytes"),
+        "library_ms": total(conv_rows, "library_ms"),
+        "per_launch": conv_rows,
+        "shape": f"the int8 stem, 4 launches, u8 [{BATCH},48,640] -> bf16 "
+                 f"[{BATCH},6,160,256]",
+        "tolerance": "identical, or 1 ulp of the dtype",
+    }, {
+        "name": "q8_linear", **common,
+        "source": "kiri_tpu_torch/kernels/csrc/q8_gemm.cu",
+        "replaces": "kiri_tpu/ops/quant8.py:65-66",
+        "ms": total(gemm_rows, "ms"), "plain_ms": total(gemm_rows, "plain_ms"),
+        "bound_ms": total(gemm_rows, "bound_ms"), "bound_by": "bytes"
+        if all(r["bound_by"] == "bytes" for r in gemm_rows.values())
+        else "operations",
+        "library_ms": total(gemm_rows, "library_ms"),
+        "per_launch": gemm_rows,
+        "shape": f"one encoder layer's 4 matmuls at M={BATCH * 160}, bf16",
+        "tolerance": "identical, or 1 ulp of the dtype",
+    }]
 
 
 def _stored_agree(got_pages, stored_pages):
@@ -2868,6 +3227,8 @@ def main() -> int:
     kernels = [*stem_phase(torch, np, model, d["imgs"]),
                preprocess_phase(torch, np, crops)]
     counts, by_run = main_path_phase(torch, np, model, cfg, tok, d, crops)
+    kernels += quant8_phase(torch, np, model, cfg, tok, d,
+                            functools.partial(drive_run, counts, by_run), card)
     pages_phase(torch, np, functools.partial(drive_run, counts, by_run), card)
     rotated_pages_phase(torch, np, functools.partial(drive_run, counts,
                                                      by_run), card)

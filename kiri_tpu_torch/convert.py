@@ -4,7 +4,8 @@ the port's torch-named state dict. A numpy copy of
 ``kiri_tpu/utils/convert.py::to_torch_state_dict``; layouts: HWIO convs ->
 OIHW, [in, out] linears -> [out, in], q/k/v projections -> one fused
 ``in_proj_weight`` [3D, D]. Also the shape rule that gives a meta-less
-checkpoint its config (``infer_cfg_from_state_dict``).
+checkpoint its config (``infer_cfg_from_state_dict``), and ``kiri_tpu``'s
+calibrated int8 scales in the port's layout (``q8_scales_from_jax``).
 """
 from __future__ import annotations
 
@@ -93,6 +94,24 @@ def state_dict_from_jax(variables: Dict[str, Any], max_dec_len: int = 512,
         out["dec_pos_enc.pe"] = sinusoid_table(max_dec_len + 10, d)[None]
     return {k: torch.from_numpy(np.array(v, order="C"))
             for k, v in out.items()}
+
+
+def q8_scales_from_jax(scales: Dict[str, Any]) -> Dict[str, Any]:
+    """``kiri_tpu``'s calibrated ``Q8Encoder.scales`` (numpy or JAX arrays)
+    -> ``ops.quant8.Q8Encoder.scales``: per stem conv 1-3 the float32 ``inv``
+    [Cin] and ``ws`` [Cout] and the int8 folded weights, HWIO ->
+    [Cout, 9 * Cin] in (dy, dx, cin) order; the encoder's per-tensor scales
+    as float32 values, one per ``kiri_tpu`` matmul."""
+    stem = []
+    for s in scales["stem"]:
+        wq = np.asarray(s["wq"], np.int8)
+        stem.append({
+            "inv": torch.from_numpy(np.array(s["inv"], np.float32)),
+            "wq": torch.from_numpy(np.ascontiguousarray(
+                wq.reshape(-1, wq.shape[3]).T)),
+            "ws": torch.from_numpy(np.array(s["ws"], np.float32).reshape(-1))})
+    return {"stem": stem,
+            "enc": [float(np.float32(a)) for a in scales["enc"]]}
 
 
 def flatten_params(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:

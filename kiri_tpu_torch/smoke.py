@@ -23,7 +23,12 @@ renderer:
   (F16 ``.safetensors`` with its meta, F32 without one, both ``.pt``
   forms), its ``KiriOCR`` logits and parameter count, its maps, boxes and
   texts with the PP-OCR DB graph that ``build_ppocr_det`` writes, and its
-  Khmer cluster CER of the smoke lines.
+  Khmer cluster CER of the smoke lines;
+- ``assets/smoke_q8.npz`` (``scripts/make_torch_smoke_q8.py``): the JAX
+  package's int8 fast path (``Q8Encoder``) over the 64 smoke lines for
+  three ``parts`` sets, calibrated on lines 0-31: its float32 scales, its
+  greedy CTC texts in float32 and bfloat16 and its text CER against its own
+  reference path (``q8_scales`` gives a set's scales in its form).
 
 ``parallel_rank`` is the body of each of the two ranks of
 ``chip_smoke.py``'s parallel phase (gloo, both on card 0).
@@ -45,6 +50,7 @@ SMOKE_LINES = Path(__file__).resolve().parent / "assets" / "smoke_lines.npz"
 SMOKE_PAGES = Path(__file__).resolve().parent / "assets" / "smoke_pages.npz"
 SMOKE_TRAIN = Path(__file__).resolve().parent / "assets" / "smoke_train.npz"
 SMOKE_GEN = Path(__file__).resolve().parent / "assets" / "smoke_gen.npz"
+SMOKE_Q8 = Path(__file__).resolve().parent / "assets" / "smoke_q8.npz"
 SMOKE_MODELS = (Path(__file__).resolve().parent / "assets"
                 / "smoke_models.npz")
 #: What the generators fixture was made with (scripts/make_torch_smoke_gen.py).
@@ -72,6 +78,21 @@ def load_smoke_lines() -> Tuple[Dict[str, np.ndarray], List[np.ndarray]]:
     with np.load(SMOKE_LINES) as f:
         data = {k: f[k] for k in f.files}
     return data, _split(data["crops_flat"], data["crop_shapes"])
+
+
+def load_smoke_q8() -> Dict[str, np.ndarray]:
+    with np.load(SMOKE_Q8) as f:
+        return {k: f[k] for k in f.files}
+
+
+def q8_scales(stored: Dict[str, np.ndarray], parts) -> Dict:
+    """A ``parts`` set's stored scales in ``kiri_tpu``'s form (``{"stem":
+    [{"inv", "wq", "ws"}] for convs 1-3, "enc": [...]}``), which
+    ``convert.q8_scales_from_jax`` takes."""
+    key = "_".join(parts)
+    stem = [{n: stored[f"{key}_stem{i}_{n}"] for n in ("inv", "wq", "ws")}
+            for i in (1, 2, 3) if f"{key}_stem{i}_inv" in stored]
+    return {"stem": stem, "enc": list(stored[f"{key}_enc"])}
 
 
 def noisy_crops(data: Dict[str, np.ndarray]
