@@ -35,12 +35,14 @@
    under ``SPEC_BEAM=True`` (the step-loop beam's texts, with LM fusion on,
    where no line certifies, and off, where most do);
 5. the int8 phase (``ops/quant8.Q8Encoder``, ``kernels/quant8.py``):
-   (a) ``q8_conv3x3`` (``csrc/q8_conv.cu``) on each of the stem's four
-   convs at batch 128 x 48 x 640 and 3 x 48 x 160, and ``q8_linear``
-   (``csrc/q8_gemm.cu``) on the encoder's four matmul shapes at M = 20,480
-   and 37, in bfloat16 and float32 on calibrated scales: each output
-   identical to its plain version's (the epilogues use no FMA, SiLU is
-   PyTorch's formula), or within 1 ulp of the dtype, which the line names;
+   (a) ``q8_stem01`` (conv0 + conv1) and ``q8_conv3x3`` (conv2, conv3), the
+   stem's three launches of ``csrc/q8_stem.cu``, at batch 128 x 48 x 640,
+   3 x 48 x 160 and the ragged 2 x 48 x 636 and 1 x 48 x 52, and
+   ``q8_linear`` (``csrc/q8_gemm.cu``) on the encoder's four matmul shapes
+   at M = 20,480 and 37, in bfloat16 and float32 on calibrated scales: each
+   output identical to its plain version's (the epilogues use no FMA, SiLU
+   is PyTorch's formula); the peak memory of an int8 forward below conv0's
+   output alone;
    (b) float32 on ``kiri_tpu``'s stored scales
    (``kiri_tpu_torch/assets/smoke_q8.npz``, ``convert.q8_scales_from_jax``)
    for ``parts`` {stem}, {stem, attn, ffn} and {attn, ffn}: the greedy CTC
@@ -50,12 +52,15 @@
    within 0.02 and its text CER against the port's own bf16 path at most
    max(0.0005, ``kiri_tpu``'s own + 0.0005); (d) each kernel launch by
    launch at the main path's shapes (kernel, plain version, bound from
-   1979 TOPS int8 and 3.35 TB/s, cuDNN bf16 convolution + bias + SiLU,
-   im2col + ``torch._int_mm``, ``torch._int_mm`` + dequant for the
-   matmuls) and encode + CTC at batch 128 for the reference path and the
-   three sets, with the card's name and power limit; (e) every int8 run
-   with the counters at 0, launching ``q8_conv3x3`` (stem sets) and
-   ``q8_linear`` (encoder sets);
+   1979 TOPS int8 and 3.35 TB/s, the mma.sync kernels' time, cuDNN bf16
+   convolution + bias + SiLU and im2col + ``torch._int_mm`` for the convs,
+   ``torch._int_mm`` + dequant for the matmuls; the bf16 ``wgmma`` stem
+   beside the int8 stem) and encode + CTC at batch 128 for the reference
+   path and the three sets, interleaved over 5 rounds (each round's host
+   ms, the host's ms to queue a batch, the device's busy ms and its longest
+   kernels), with the card's name and power limit; (e) every int8 run
+   with the counters at 0, launching ``q8_stem01`` and ``q8_conv3x3``
+   (stem sets: 3 launches a forward) and ``q8_linear`` (encoder sets);
 6. the pages phase: ``OCR`` on the card with both committed checkpoints
    (``models/model.safetensors``, ``models/detector.safetensors``) over the
    committed pages (``kiri_tpu_torch/assets/smoke_pages.npz``), each run with
@@ -258,6 +263,13 @@ TOL_PRE = 2e-3            # normalized units; ~0.26 of a u8 grey level
 # and tensor abs-maxes after float32 sums taken in another order.
 TOL_Q8_CALIB = 1e-5
 Q8_TEXT_CER = 0.0005      # int8 against bf16 texts, tests/test_quant8.py
+ROUNDS = 5                # interleaved rounds of the int8 encode + CTC timing
+# The times of the int8 kernels' first, mma.sync version (conv0 a launch of
+# its own; PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's in the phase's lines, not in the kernels line.
+MMA_SYNC_Q8_MS = {"conv0": 0.5002, "conv1": 0.5833, "conv2": 0.4698,
+              "conv3": 0.5836, "stem": 2.1370, "qkv": 0.0814, "wo": 0.0294,
+              "lin1": 0.1001, "lin2": 0.0796}
 CER_MAX = 0.02            # tests/test_ckpt_regression.py, "ctc" and "beam"
 CER_MAX_DECODER = 0.03    # ... and its "decoder" row
 TOL_CONF_F32 = 1e-3       # float32 confidences against kiri_tpu's
@@ -611,7 +623,9 @@ def preprocess_phase(torch, np, crops):
 def drive_run(total, by_run, name, fn, needs):
     """Run ``fn`` with the launch counters at 0, read them just after into
     ``by_run[name]`` and add them to ``total``, and hold each kernel of
-    ``needs`` to at least one launch in it (the stems' in threes)."""
+    ``needs`` to at least one launch in it (the stems' in threes: 3 of
+    ``stem_fused`` or ``stem_fused_f32``, or 1 of ``q8_stem01`` and 2 of
+    ``q8_conv3x3``, a forward)."""
     from kiri_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     reset_launch_counts()
@@ -622,9 +636,11 @@ def drive_run(total, by_run, name, fn, needs):
     by_run[name] = {k: v for k, v in counts.items() if v}
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
-    # Both stems launch 3 kernels an encode.
-    check(all(counts[k] > 0 and (counts[k] % 3 == 0 or "stem" not in k)
-              for k in needs),
+    # Every stem launches 3 kernels an encode.
+    threes = all(counts[k] % 3 == 0 for k in needs if k.startswith("stem"))
+    if "q8_stem01" in needs:
+        threes &= counts["q8_conv3x3"] == 2 * counts["q8_stem01"]
+    check(all(counts[k] > 0 for k in needs) and threes,
           f"{name}: {len(res)} results in {dt:.3f} s, launches "
           f"{by_run[name]} (needs {', '.join(needs)}; the stem's in "
           f"threes)")
@@ -963,37 +979,43 @@ def _ulps(torch, got, want):
 
 
 def _hold_q8(torch, got, want, what):
-    """Holds a q8 kernel's output to its plain version's: identical, or
-    within 1 ulp of the dtype. Returns (max |diff|, identical)."""
-    same = bool(torch.equal(got, want))
-    ulps = float(_ulps(torch, got, want).max()) if got.numel() else 0.0
+    """Holds a q8 kernel's output to its plain version's: identical (the
+    sums are exact, the epilogues take no FMA, SiLU is PyTorch's). Returns
+    (max |diff|, identical)."""
+    same = got.shape == want.shape and bool(torch.equal(got, want))
     err = float((got.float() - want.float()).abs().max()) if got.numel() \
-        else 0.0
-    how = ("identical to the plain version" if same else
-           f"max {ulps:.2f} ulps of {want.dtype} from the plain version "
-           f"(tol 1)")
-    check(got.shape == want.shape and (same or ulps <= 1.0)
-          and bool(got.float().isfinite().all()),
+        and got.shape == want.shape else 0.0
+    how = "identical to the plain version" if same else (
+        f"differs from the plain version: shape {tuple(got.shape)} vs "
+        f"{tuple(want.shape)}" + (f", {int((got != want).sum())} values, max "
+                                  f"{float(_ulps(torch, got, want).max()):.2f}"
+                                  f" ulps of {want.dtype}"
+                                  if got.shape == want.shape else ""))
+    check(same and bool(got.float().isfinite().all()),
           f"{what}: {how}, max |diff| {err:.3e}")
     return err, same
 
 
 def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
     """The int8 fast path (``ops/quant8.Q8Encoder``): (a) each kernel against
-    its plain version on the card (the stem's four convs at batch 128 x
-    48 x 640 and at batch 3 x 48 x 160, the four encoder matmuls at M =
-    20,480 and 37, float32 and bfloat16), timed with the plain version, the
-    bound and the library yardsticks; (b) float32 texts on kiri_tpu's stored
-    scales against its stored texts, and the port's own calibration against
-    those scales; (c) bf16 on the port's own calibration: CER against the
-    ground truth and the text CER against its own reference path; (d)
-    encode + CTC at batch 128 for the reference path and the three sets;
-    (e) each int8 run through ``drive``. Returns the two kernels' entries."""
+    its plain version on the card (the stem's three launches, conv0 + conv1,
+    conv2 and conv3, at batch 128 x 48 x 640, 3 x 48 x 160 and the ragged
+    2 x 48 x 636 and 1 x 48 x 52; the four encoder matmuls at M = 20,480 and
+    37; float32 and bfloat16), timed with the plain version, the bound, the
+    mma.sync kernels' times and the library yardsticks, beside the bf16
+    wgmma stem, and the peak memory of an int8 forward; (b) float32 texts
+    on kiri_tpu's stored scales against its stored texts, and the port's
+    own calibration against those scales; (c) bf16 on the port's own calibration: CER
+    against the ground truth and the text CER against its own reference
+    path; (d) encode + CTC at batch 128 for the reference path and the three
+    sets; (e) each int8 run through ``drive``. Returns the three kernels'
+    entries."""
     from kiri_tpu_torch.convert import q8_scales_from_jax
     from kiri_tpu_torch.kernels.quant8 import (q8_conv3x3, q8_conv3x3_plain,
                                                q8_linear, q8_linear_plain,
+                                               q8_stem01, q8_stem01_plain,
                                                quantize)
-    from kiri_tpu_torch.kernels.stem import STRIDES
+    from kiri_tpu_torch.kernels.stem import STRIDES, stem_fused
     from kiri_tpu_torch.ops.preprocess import normalize_u8
     from kiri_tpu_torch.ops.quant8 import Q8Encoder
     from kiri_tpu_torch.smoke import load_smoke_q8, q8_scales
@@ -1008,8 +1030,8 @@ def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
     cfg16 = cfg.replace(COMPUTE_DTYPE="bfloat16")
     sets = (("stem",), ("stem", "attn", "ffn"), ("attn", "ffn"))
 
-    def needs(parts):
-        return (("q8_conv3x3",) if "stem" in parts else ()) + (
+    def needs(parts):                # 3 stem launches: q8_stem01, conv2-3
+        return (("q8_stem01", "q8_conv3x3") if "stem" in parts else ()) + (
             ("q8_linear",) if {"attn", "ffn"} & set(parts) else ())
 
     def read(ctc):
@@ -1075,32 +1097,68 @@ def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
     u8 = torch.from_numpy(np.resize(imgs, (BATCH,) + imgs.shape[1:])).cuda()
     q32 = Q8Encoder(model, cfg32, device="cuda")
     q32.calibrate(imgs[:32])
-    errs, same, rows = [], [], {}
+    errs = {"q8_stem01": [], "q8_conv3x3": [], "q8_linear": []}
+    same = {name: [] for name in errs}
+    rows = {}
 
-    def conv_args(q, i, x):
-        run, p = q._runtime(), q.pack["stem"][i]
-        if i == 0:
-            return ((x, p["w"], run["conv0"], p["b"], STRIDES[0]),
-                    {"corr": q._correction(*x.shape[1:]),
-                     "out_dtype": q.dtype})
-        s = run["stem"][i - 1]
-        return (x, s["wq"], s["ws"], p["b"], STRIDES[i]), {"inv": s["inv"]}
+    def stem_args(q, x):
+        """(args of q8_stem01, conv2's and conv3's (args, inv)) of ``q``."""
+        run, p = q._runtime(), q.pack["stem"]
+        s1 = run["stem"][0]
+        a01 = (x, p[0]["w"], run["conv0"], p[0]["b"],
+               q._correction(*x.shape[1:]), s1["wq"], s1["ws"], p[1]["b"],
+               s1["inv"], q.dtype)
+        convs = [((run["stem"][i - 1]["wq"], run["stem"][i - 1]["ws"],
+                   p[i]["b"], STRIDES[i]), run["stem"][i - 1]["inv"])
+                 for i in (2, 3)]
+        return a01, convs
+
+    def hold(name, got, want, what):
+        e, s = _hold_q8(torch, got, want, what)
+        errs[name].append(e)
+        same[name].append(s)
 
     with torch.inference_mode():
         for q in (q16[sets[1]], q32):
             name = "bf16" if q.dtype == torch.bfloat16 else "f32"
-            for n, w in ((BATCH, 640), (3, 160)):
+            for n, w in ((BATCH, 640), (3, 160), (2, 636), (1, 52)):
                 x = u8[:n, :, :w].contiguous()
-                for i in range(4):
-                    args, kw = conv_args(q, i, x)
-                    got = q8_conv3x3(*args, **kw)
-                    e, s = _hold_q8(torch, got, q8_conv3x3_plain(*args, **kw),
-                                    f"q8_conv3x3 {name} conv{i} B={n} W={w}")
-                    errs.append(e)
-                    same.append(s)
+                a01, convs = stem_args(q, x)
+                got = q8_stem01(*a01)
+                hold("q8_stem01", got, q8_stem01_plain(*a01),
+                     f"q8_stem01 {name} conv0+conv1 B={n} W={w}")
+                if n == BATCH and name == "bf16":
+                    rows["stem01"] = (a01, got)
+                for i, (args, inv) in zip((2, 3), convs):
+                    out = q8_conv3x3(got, *args, inv=inv)
+                    hold("q8_conv3x3", out,
+                         q8_conv3x3_plain(got, *args, inv=inv),
+                         f"q8_conv3x3 {name} conv{i} B={n} W={w}")
                     if n == BATCH and name == "bf16":
-                        rows[f"conv{i}"] = (args, kw, got)
-                    x = got
+                        rows[f"conv{i}"] = (got, args, inv, out)
+                    got = out
+            # SiLU at the edges of its range (csrc/q8_wgmma.cuh: past
+            # x = -87 the division's operands are scaled, past -88.7 the
+            # divisor is infinite, past 17 it is 1): two bands of conv0's
+            # pixels (corr +-200) and every channel of convs 1-3 (scale
+            # x 1000) reach pre-activations of some hundreds.
+            x = u8[:3, :, :160].contiguous()
+            a01, convs = stem_args(q, x)
+            corr = a01[4].clone()
+            corr[:, 40:80] += 200.0
+            corr[:, 80:120] -= 200.0
+            a01 = a01[:4] + (corr, a01[5], a01[6] * 1000.0) + a01[7:]
+            got = q8_stem01(*a01)
+            hold("q8_stem01", got, q8_stem01_plain(*a01),
+                 f"q8_stem01 {name} at the edges of SiLU's range")
+            for i, (args, inv) in zip((2, 3), convs):
+                args = (args[0], args[1] * 1000.0) + args[2:]
+                out = q8_conv3x3(got, *args, inv=inv)
+                hold("q8_conv3x3", out,
+                     q8_conv3x3_plain(got, *args, inv=inv),
+                     f"q8_conv3x3 {name} conv{i} at the edges of SiLU's "
+                     f"range")
+                got = out
             rng = np.random.default_rng(0)
             layer = q.pack["enc"][0]
             run = q._runtime()["enc"][0]
@@ -1112,75 +1170,110 @@ def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
                     inv, sc = run[gname]
                     args = (x, inv, layer[gname]["w"], sc, layer[gname]["b"])
                     got = q8_linear(*args)
-                    e, s = _hold_q8(torch, got, q8_linear_plain(*args),
-                                    f"q8_linear {name} {gname} M={m} K={k}")
-                    errs.append(e)
-                    same.append(s)
+                    hold("q8_linear", got, q8_linear_plain(*args),
+                         f"q8_linear {name} {gname} M={m} K={k}")
                     if m == BATCH * 160 and name == "bf16":
                         rows[gname] = args
-        print(f"q8 kernels: {sum(same)}/{len(same)} outputs identical to "
-              f"the plain versions' (the epilogues take no FMA), the rest "
-              f"within 1 ulp", flush=True)
+        print("q8 kernels: outputs identical to the plain versions' (the "
+              "epilogues take no FMA): " + ", ".join(
+                  f"{k} {sum(v)}/{len(v)}" for k, v in same.items()),
+              flush=True)
 
         # (d) timing, launch by launch at the main path's shapes (bf16).
-        def conv_row(i):
-            args, kw, out = rows[f"conv{i}"]
-            x, wq, _, _, (sh, sw) = args
-            b, h, w = x.shape[:3]
-            cin, cout = (1 if i == 0 else x.shape[3]), wq.shape[0]
-            ho, wo = out.shape[1:3]
-            ops = 2.0 * b * ho * wo * cout * 9 * cin
-            nbytes = (x.numel() * x.element_size()
-                      + out.numel() * out.element_size() + wq.numel()
-                      + 4 * 3 * cout + (4 * ho * wo * cout if i == 0 else 0))
-            xf = (normalize_u8(x, torch.bfloat16).unsqueeze(1) if i == 0
-                  else x.permute(0, 3, 1, 2))
-            wf = q.pack["stem"][i]["wf"]
-            oihw = wf.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).to(
-                torch.bfloat16).contiguous()
-            bias16 = args[3].to(torch.bfloat16)
+        q = q16[sets[1]]
 
-            def cudnn():
-                return F.silu(F.conv2d(xf, oihw, bias16, stride=(sh, sw),
-                                       padding=1))
-            xi = (x.to(torch.int16) - 128).to(torch.int8).unsqueeze(-1) \
-                if i == 0 else None
-            kpad = -(-9 * cin // 8) * 8
-            wpad = F.pad(wq, (0, kpad - 9 * cin)).contiguous()
-
-            def im2col_int_mm():
-                xq = xi if i == 0 else quantize(x, kw["inv"])
-                xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
-                cols = torch.cat([xp[:, dy:dy + sh * (ho - 1) + 1:sh,
-                                     dx:dx + sw * (wo - 1) + 1:sw]
-                                  for dy in range(3) for dx in range(3)], -1)
-                cols = F.pad(cols.reshape(-1, 9 * cin), (0, kpad - 9 * cin))
-                y = torch._int_mm(cols, wpad.t()).float() * args[2]
-                if i == 0:
-                    y = y + kw["corr"].reshape(-1, cout).repeat(b, 1)
-                return F.silu(y + args[3]).to(torch.bfloat16)
-            return {"ms": time_ms(torch, lambda: q8_conv3x3(*args, **kw)),
-                    "plain_ms": time_ms(torch, lambda: q8_conv3x3_plain(
-                        *args, **kw), iters=5),
-                    "ops": ops, "bytes_in": x.numel() * x.element_size(),
-                    "bytes_out": out.numel() * out.element_size(),
-                    "bytes_weights": nbytes - x.numel() * x.element_size()
-                    - out.numel() * out.element_size(),
-                    "bound_ms": max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
+        def bound(ops, nbytes):
+            return {"bound_ms": max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
                     * 1e3,
                     "bound_by": ("operations" if ops / PEAK_INT8
-                                 >= nbytes / PEAK_BYTES else "bytes"),
-                    "library_ms": time_ms(torch, cudnn),
-                    "int_mm_ms": time_ms(torch, im2col_int_mm, iters=5),
-                    "shape": f"{tuple(x.shape)} {x.dtype} -> "
-                             f"{tuple(out.shape)} bf16, K={9 * cin}"}
+                                 >= nbytes / PEAK_BYTES else "bytes")}
+
+        def cudnn_conv(i, xf, stride):
+            """cuDNN's bf16 convolution + bias + SiLU of stem conv i."""
+            wf = q.pack["stem"][i]["wf"]
+            cin, cout = wf.shape[0] // 9, wf.shape[1]
+            oihw = wf.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).to(
+                torch.bfloat16).contiguous()
+            b16 = q.pack["stem"][i]["b"].to(torch.bfloat16)
+            return lambda h: F.silu(F.conv2d(h, oihw, b16, stride=stride,
+                                             padding=1))
+
+        def int_mm_conv(xq, wq, stride, scale, bias, corr=None):
+            """im2col + ``torch._int_mm`` of a stem conv on int8 NHWC
+            ``xq``, then the dequant, bias and SiLU: [B, Ho, Wo, Cout]
+            bf16."""
+            b, h, w, cin = xq.shape
+            sh, sw = stride
+            ho, wo = (h - 1) // sh + 1, (w - 1) // sw + 1
+            kpad = -(-9 * cin // 8) * 8
+            xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+            cols = torch.cat([xp[:, dy:dy + sh * (ho - 1) + 1:sh,
+                                 dx:dx + sw * (wo - 1) + 1:sw]
+                              for dy in range(3) for dx in range(3)], -1)
+            cols = F.pad(cols.reshape(-1, 9 * cin), (0, kpad - 9 * cin))
+            y = torch._int_mm(cols, wq.t()).float() * scale
+            if corr is not None:
+                y = y + corr.reshape(-1, wq.shape[0]).repeat(b, 1)
+            return F.silu(y + bias).to(torch.bfloat16).reshape(
+                b, ho, wo, -1)
+
+        def kpad8(wq):
+            return F.pad(wq, (0, -wq.shape[1] % 8)).contiguous()
+
+        def stem01_row():
+            a01, out = rows["stem01"]
+            x, w0, s0, b0, corr, w1, s1, b1, inv1, _ = a01
+            b, h, w = x.shape
+            ops = 2.0 * b * h * w * 48 * 9 + 2.0 * out.numel() * 9 * 48
+            nbytes = (x.numel() + out.numel() * out.element_size()
+                      + corr.numel() * 4 + w0.numel() + w1.numel()
+                      + 4 * (3 * 48 + 2 * 96))
+            xf = normalize_u8(x, torch.bfloat16).unsqueeze(1)
+            c0, c1 = cudnn_conv(0, xf, STRIDES[0]), cudnn_conv(1, xf,
+                                                               STRIDES[1])
+            w0p, w1p = kpad8(w0), kpad8(w1)
+
+            def int_mm():
+                xi = (x.to(torch.int16) - 128).to(torch.int8).unsqueeze(-1)
+                h0 = int_mm_conv(xi, w0p, STRIDES[0], s0, b0, corr)
+                return int_mm_conv(quantize(h0, inv1), w1p, STRIDES[1], s1,
+                                   b1)
+            return {"ms": time_ms(torch, lambda: q8_stem01(*a01)),
+                    "plain_ms": time_ms(torch, lambda: q8_stem01_plain(*a01),
+                                        iters=5),
+                    **bound(ops, nbytes),
+                    "library_ms": time_ms(torch, lambda: c1(c0(xf))),
+                    "int_mm_ms": time_ms(torch, int_mm, iters=5),
+                    "shape": f"u8 {tuple(x.shape)} -> {tuple(out.shape)} "
+                             f"bf16, K=9 and 432"}
+
+        def conv_row(i):
+            x, args, inv, out = rows[f"conv{i}"]
+            wq, sc, bias, stride = args
+            b, h, w, cin = x.shape
+            cout = wq.shape[0]
+            ops = 2.0 * out.numel() * 9 * cin
+            nbytes = (x.numel() * x.element_size()
+                      + out.numel() * out.element_size() + wq.numel()
+                      + 4 * (cin + 2 * cout))
+            xf = x.permute(0, 3, 1, 2)
+            lib = cudnn_conv(i, xf, stride)
+            wp = kpad8(wq)
+            return {"ms": time_ms(torch, lambda: q8_conv3x3(x, *args,
+                                                            inv=inv)),
+                    "plain_ms": time_ms(torch, lambda: q8_conv3x3_plain(
+                        x, *args, inv=inv), iters=5),
+                    **bound(ops, nbytes),
+                    "library_ms": time_ms(torch, lambda: lib(xf)),
+                    "int_mm_ms": time_ms(torch, lambda: int_mm_conv(
+                        quantize(x, inv), wp, stride, sc, bias), iters=5),
+                    "shape": f"{tuple(x.shape)} bf16 -> {tuple(out.shape)}, "
+                             f"K={9 * cin}"}
 
         def gemm_row(gname):
             x, inv, wq, sc, bias = rows[gname]
             m, k = x.shape
             n = wq.shape[0]
-            ops = 2.0 * m * n * k
-            nbytes = 2 * (m * k + m * n) + n * k + 8 * n
 
             def lib():
                 acc = torch._int_mm(quantize(x, inv), wq.t())
@@ -1188,100 +1281,166 @@ def quant8_phase(torch, np, model, cfg, tok, d, drive, card):
             return {"ms": time_ms(torch, lambda: q8_linear(*rows[gname])),
                     "plain_ms": time_ms(torch, lambda: q8_linear_plain(
                         *rows[gname]), iters=5),
-                    "bound_ms": max(ops / PEAK_INT8, nbytes / PEAK_BYTES)
-                    * 1e3,
-                    "bound_by": ("operations" if ops / PEAK_INT8
-                                 >= nbytes / PEAK_BYTES else "bytes"),
+                    **bound(2.0 * m * n * k,
+                            2 * (m * k + m * n) + n * k + 8 * n),
                     "library_ms": time_ms(torch, lib),
                     "shape": f"bf16 [{m},{k}] x int8 [{n},{k}]"}
 
-        q = q16[sets[1]]
-        conv_rows = {f"conv{i}": conv_row(i) for i in range(4)}
+        stem_rows = {"stem01": stem01_row(), "conv2": conv_row(2),
+                     "conv3": conv_row(3)}
         gemm_rows = {g: gemm_row(g) for g in ("qkv", "wo", "lin1", "lin2")}
-        del rows
-        for name, r in {**conv_rows, **gemm_rows}.items():
-            print(f"q8 {name} ({r['shape']}): kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
-                  f"ms ({r['bound_by']}), library "
-                  + f"{r['library_ms']:.4f}"
-                  + (f", im2col + _int_mm {r['int_mm_ms']:.4f}"
-                     if "int_mm_ms" in r else "")
-                  + f" ms; {card}", flush=True)
+        # The port's bf16 wgmma stem on the same lines, in the same run.
+        folded = model.stem.folded(torch.bfloat16)
+        lines16 = normalize_u8(u8, torch.bfloat16)
+        bf16_stem_ms = time_ms(torch, lambda: stem_fused(lines16, folded))
+        before = {**MMA_SYNC_Q8_MS, "stem01": MMA_SYNC_Q8_MS["conv0"]
+                  + MMA_SYNC_Q8_MS["conv1"]}
+        for name, r in {**stem_rows, **gemm_rows}.items():
+            print(f"q8 {name} ({r['shape']}): kernel {r['ms']:.4f} ms "
+                  f"(mma.sync: {before[name]:.4f}), plain "
+                  f"{r['plain_ms']:.3f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['ms'] / r['bound_ms']:.1f}x), library "
+                  f"{r['library_ms']:.4f} ms"
+                  + (f", im2col + _int_mm {r['int_mm_ms']:.4f} ms"
+                     if "int_mm_ms" in r else "") + f"; {card}", flush=True)
+        stem_ms = sum(r["ms"] for r in stem_rows.values())
+        print(f"q8 the int8 stem, 3 launches: {stem_ms:.4f} ms (mma.sync, 4 "
+              f"launches: {MMA_SYNC_Q8_MS['stem']:.4f}); the bf16 wgmma stem "
+              f"(stem_fused) {bf16_stem_ms:.4f} ms in this run: "
+              f"{bf16_stem_ms / stem_ms:.2f}x; {card}", flush=True)
 
-        # encode + CTC at batch 128, device-resident: ms a batch, lines/s.
+        # Peak memory: conv0's output never exists in device memory.
+        def peak_mib(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+        a01, out01 = rows.pop("stem01")
+        del rows
+        conv0_mib = BATCH * 48 * 640 * 48 * 2 / 2 ** 20
+        out_mib = out01.numel() * out01.element_size() / 2 ** 20
+        stem_mib = peak_mib(lambda: q8_stem01(*a01))
+        full_mib = peak_mib(lambda: q16[sets[1]](u8))
+        check(stem_mib <= out_mib + 2,
+              f"q8 peak memory at batch {BATCH}: q8_stem01 {stem_mib:.1f} MiB"
+              f" above what was resident, its output alone ({out_mib:.1f}); "
+              f"conv0's bf16 output would be {conv0_mib:.1f} MiB; a full "
+              f"int8 forward {full_mib:.1f} MiB")
+        del a01, out01
+
+        # encode + CTC at batch 128, device-resident: ms a batch, lines/s,
+        # the reference path and the three sets interleaved over ROUNDS
+        # rounds (host clock: a path whose launches outrun the device reads
+        # the host's pace, which moves with the load on the host's cores).
         def per_batch(fn, reps=10):
+            """(ms a batch, the host's ms to queue a batch)."""
             for _ in range(2):
                 fn(u8)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = [fn(u8)[1].argmax(-1) for _ in range(reps)]
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
             del out
-            return (time.perf_counter() - t0) / reps * 1e3
+            return ((time.perf_counter() - t0) / reps * 1e3,
+                    (t1 - t0) / reps * 1e3)
 
-        def busy(fn, match):
-            """The device's busy ms a batch under the profiler, and the ms
-            of the kernels whose name holds ``match``."""
-            return host_and_device_ms(torch, lambda: fn(u8), 5, match)[1:]
+        def busy(fn, match, reps=5):
+            """The device's busy ms a batch under the profiler, the ms of
+            the kernels whose name holds ``match``, and the three longest
+            kernels' (name, ms)."""
+            from torch.profiler import ProfilerActivity, profile
+            fn(u8)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn(u8)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by[e.name] = (by.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3 / reps)
+            top = sorted(by.items(), key=lambda kv: -kv[1])[:3]
+            return (sum(by.values()), sum(v for k, v in by.items()
+                                          if match in k.lower()), top)
 
-        ms_ref = per_batch(q16[sets[0]].bf16)
-        dev, stem_ms = busy(q16[sets[0]].bf16, "stem")
+        paths = {"reference path": (q16[sets[0]].bf16, "stem")}
+        paths.update({f"int8 {'_'.join(parts)}": (q16[parts], "q8_")
+                      for parts in sets})
+        host = {k: [] for k in paths}
+        dev = {k: [] for k in paths}
+        for rnd in range(ROUNDS):
+            for k, (fn, match) in paths.items():
+                host[k].append(per_batch(fn))
+                if rnd in (0, ROUNDS - 1):
+                    dev[k].append(busy(fn, match))
+
+        def med(v):
+            return float(np.median(v))
+        ms_ref = med([h[0] for h in host["reference path"]])
         print(f"q8 encode + CTC (bf16, batch {BATCH}, 48 x 640, "
-              f"device-resident, host clock): reference path {ms_ref:.2f} "
-              f"ms ({BATCH / ms_ref * 1e3:.1f} lines/s; device busy "
-              f"{dev:.2f} ms, the stem kernels {stem_ms:.2f} ms); {card}",
-              flush=True)
-        for parts in sets:
-            ms = per_batch(q16[parts])
-            dev, q8_ms = busy(q16[parts], "q8_")
-            print(f"q8 encode + CTC int8 {'_'.join(parts)}: {ms:.2f} ms "
-                  f"({BATCH / ms * 1e3:.1f} lines/s, {ms_ref / ms:.2f}x the "
-                  f"reference path; device busy {dev:.2f} ms, the q8 "
-                  f"kernels {q8_ms:.2f} ms)", flush=True)
+              f"device-resident, host clock, {ROUNDS} interleaved rounds of "
+              f"10 batches; {card}):", flush=True)
+        for k in paths:
+            ms = [h[0] for h in host[k]]
+            issue = [h[1] for h in host[k]]
+            busy_ms = [d[0] for d in dev[k]]
+            part = [d[1] for d in dev[k]]
+            top = ", ".join(f"{n[:48]} {v:.2f}" for n, v in dev[k][-1][2])
+            print(f"q8   {k}: {med(ms):.2f} ms median (rounds "
+                  f"{', '.join(f'{v:.2f}' for v in ms)}; "
+                  f"{BATCH / med(ms) * 1e3:.1f} lines/s, "
+                  f"{ms_ref / med(ms):.2f}x the reference path); the host "
+                  f"queues a batch in {med(issue):.2f} ms median "
+                  f"({min(issue):.2f}-{max(issue):.2f}); device busy "
+                  f"{' and '.join(f'{v:.2f}' for v in busy_ms)} ms, "
+                  f"{paths[k][1]} kernels "
+                  f"{' and '.join(f'{v:.2f}' for v in part)} ms; longest: "
+                  f"{top}", flush=True)
     # The plain versions' float64 im2col buffers (GBs at batch 128) stay in
     # the caching allocator otherwise, where later phases cannot reuse them
     # and the parallel phase's ranks on this card then find no memory.
-    del q16, q32, u8
+    del q16, q32, u8, lines16
     torch.cuda.empty_cache()
     print(f"q8 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    def total(rs, key):
-        return sum(r[key] for r in rs.values())
+    def entry(name, source, replaces, rs, shape):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": max(errs[name]),
+                "ms": sum(r["ms"] for r in rs.values()),
+                "plain_ms": sum(r["plain_ms"] for r in rs.values()),
+                "bound_ms": sum(r["bound_ms"] for r in rs.values()),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r in rs.values())
+                else "operations",
+                "library_ms": sum(r["library_ms"] for r in rs.values()),
+                "per_launch": rs, "shape": shape,
+                "identical_to_plain": f"{sum(same[name])}/{len(same[name])}"
+                                      f" outputs",
+                "tolerance": "identical"}
 
-    # The stem as one function, as the stems' entries count it: its u8
-    # input, its output and the weights moved once.
-    stem_ops = sum(r["ops"] for r in conv_rows.values())
-    stem_bytes = (conv_rows["conv0"]["bytes_in"]
-                  + conv_rows["conv3"]["bytes_out"]
-                  + sum(r["bytes_weights"] for r in conv_rows.values()))
-    common = {"route": "cuda", "launches": 0, "max_abs_err": max(errs),
-              "identical_to_plain": f"{sum(same)}/{len(same)} outputs"}
-    return [{
-        "name": "q8_conv3x3", **common,
-        "source": "kiri_tpu_torch/kernels/csrc/q8_conv.cu",
-        "replaces": "kiri_tpu/ops/quant8.py:149-153,167-170",
-        "ms": total(conv_rows, "ms"), "plain_ms": total(conv_rows, "plain_ms"),
-        "bound_ms": max(stem_ops / PEAK_INT8, stem_bytes / PEAK_BYTES) * 1e3,
-        "bound_by": ("operations" if stem_ops / PEAK_INT8
-                     >= stem_bytes / PEAK_BYTES else "bytes"),
-        "library_ms": total(conv_rows, "library_ms"),
-        "per_launch": conv_rows,
-        "shape": f"the int8 stem, 4 launches, u8 [{BATCH},48,640] -> bf16 "
-                 f"[{BATCH},6,160,256]",
-        "tolerance": "identical, or 1 ulp of the dtype",
-    }, {
-        "name": "q8_linear", **common,
-        "source": "kiri_tpu_torch/kernels/csrc/q8_gemm.cu",
-        "replaces": "kiri_tpu/ops/quant8.py:65-66",
-        "ms": total(gemm_rows, "ms"), "plain_ms": total(gemm_rows, "plain_ms"),
-        "bound_ms": total(gemm_rows, "bound_ms"), "bound_by": "bytes"
-        if all(r["bound_by"] == "bytes" for r in gemm_rows.values())
-        else "operations",
-        "library_ms": total(gemm_rows, "library_ms"),
-        "per_launch": gemm_rows,
-        "shape": f"one encoder layer's 4 matmuls at M={BATCH * 160}, bf16",
-        "tolerance": "identical, or 1 ulp of the dtype",
-    }]
+    src = "kiri_tpu_torch/kernels/csrc/"
+    return [
+        entry("q8_stem01", src + "q8_stem.cu",
+              "kiri_tpu/ops/quant8.py:149-153,167-170",
+              {"stem01": stem_rows["stem01"]},
+              f"conv0 + conv1, u8 [{BATCH},48,640] -> bf16 "
+              f"[{BATCH},24,320,96]"),
+        entry("q8_conv3x3", src + "q8_stem.cu", "kiri_tpu/ops/quant8.py:167-170",
+              {k: stem_rows[k] for k in ("conv2", "conv3")},
+              f"conv2 and conv3, bf16 [{BATCH},24,320,96] -> "
+              f"[{BATCH},6,160,256]"),
+        entry("q8_linear", src + "q8_gemm.cu", "kiri_tpu/ops/quant8.py:65-66",
+              gemm_rows,
+              f"one encoder layer's 4 matmuls at M={BATCH * 160}, bf16"),
+    ]
 
 
 def _stored_agree(got_pages, stored_pages):
@@ -2871,7 +3030,7 @@ def parallel_phase(torch, np, drive, card):
     from kiri_tpu_torch.detect.db.net import build_db_net
     from kiri_tpu_torch.detect.db.train import DBTrainConfig, train_db
     from kiri_tpu_torch.engine import RecognizerEngine
-    from kiri_tpu_torch.parallel.launch import free_port, spawn
+    from kiri_tpu_torch.parallel.launch import spawn
     from kiri_tpu_torch.smoke import (PAR_DP_STEPS, PAR_TP_STEPS,
                                       load_smoke_lines, load_smoke_train,
                                       parallel_train_batch,
@@ -2896,8 +3055,10 @@ def parallel_phase(torch, np, drive, card):
         en = cer([(t, o) for t, o, k in zip(texts, hyp, is_kh) if not k])
         return kh <= cer_max and en <= cer_max, kh, en
 
-    # (a) NCCL at world size 1, in this process.
-    P.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    # (a) NCCL at world size 1, in this process, through a store on a port
+    # the OS picks (a port chosen first and bound later may be taken).
+    P.initialize(num_processes=1, process_id=0, store=dist.TCPStore(
+        "127.0.0.1", 0, None, is_master=True, wait_for_workers=False))
     try:
         one = torch.ones(4, device="cuda")
         dist.all_reduce(one)

@@ -7,13 +7,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .quant8 import q8_conv3x3, q8_linear
+from .quant8 import q8_conv3x3, q8_linear, q8_stem01
 from .resize import preprocess_lines
 from .stem import stem_fused, stem_fused_f32
 
 WRAPPERS = {"preprocess_lines": preprocess_lines, "stem_fused": stem_fused,
-            "stem_fused_f32": stem_fused_f32, "q8_conv3x3": q8_conv3x3,
-            "q8_linear": q8_linear}
+            "stem_fused_f32": stem_fused_f32, "q8_stem01": q8_stem01,
+            "q8_conv3x3": q8_conv3x3, "q8_linear": q8_linear}
 
 
 def launch_counts() -> Dict[str, int]:

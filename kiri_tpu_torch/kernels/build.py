@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kiri_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("preprocess_lines", "q8_conv", "q8_gemm", "stem_f32x3", "stem_mma")
+SOURCES = ("preprocess_lines", "q8_gemm", "q8_stem", "stem_f32x3", "stem_mma")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

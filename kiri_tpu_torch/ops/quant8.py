@@ -3,7 +3,8 @@
 
 ``Q8Encoder`` runs the stem convolutions and the encoder's weight matmuls
 as s8 x s8 -> s32 contractions with a float32 dequant epilogue, through the
-hand-written kernels of ``kernels/quant8.py`` (``q8_conv3x3``, ``q8_linear``);
+hand-written kernels of ``kernels/quant8.py`` (``q8_stem01`` for conv0 and
+conv1 in one launch, ``q8_conv3x3`` for conv2 and conv3, ``q8_linear``);
 attention products, softmax, LayerNorm, GELU, residuals and the CTC head
 stay in the compute dtype and float32, as in ``kiri_tpu``. The scheme is
 ``kiri_tpu``'s post-training quantization:
@@ -45,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import no_tf32, resolve_device
-from ..kernels.quant8 import f32, q8_conv3x3, q8_linear, quantize
+from ..kernels.quant8 import (f32, q8_conv3x3, q8_linear, q8_stem01,
+                              quantize)
 from ..kernels.stem import STRIDES, fold_stem_weights
 from ..models import layers as L
 from ..models.recognizer import _COMPUTE_DTYPES, _pos_enc_2d
@@ -176,10 +178,12 @@ class Q8Encoder:
         for i, stride in enumerate(STRIDES):
             p = self.pack["stem"][i]
             if quant_stem and run is not None and i == 0:
-                x = q8_conv3x3(imgs.contiguous(), p["w"], run["conv0"],
-                               p["b"], stride,
-                               corr=self._correction(*imgs.shape[1:]),
-                               out_dtype=dtype)
+                q1, p1 = run["stem"][0], self.pack["stem"][1]
+                x = q8_stem01(imgs.contiguous(), p["w"], run["conv0"],
+                              p["b"], self._correction(*imgs.shape[1:]),
+                              q1["wq"], q1["ws"], p1["b"], q1["inv"], dtype)
+            elif quant_stem and run is not None and i == 1:
+                continue                      # inside q8_stem01
             elif quant_stem and run is not None:
                 qs = run["stem"][i - 1]
                 x = q8_conv3x3(x.contiguous(), qs["wq"], qs["ws"], p["b"],

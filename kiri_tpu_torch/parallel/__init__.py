@@ -46,14 +46,18 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               device=None) -> torch.device:
+               device=None, store: Optional[dist.Store] = None
+               ) -> torch.device:
     """Join the process group; returns this process's device.
 
     With no arguments the coordinator, world size and rank come from
     torchrun's ``MASTER_ADDR``/``MASTER_PORT`` (RuntimeError without
     them), ``WORLD_SIZE`` and ``RANK``;
     ``coordinator_address="host:port"``, ``num_processes`` and
-    ``process_id`` give them explicitly. ``device=None`` is the card
+    ``process_id`` give them explicitly. ``store`` (a
+    ``torch.distributed.Store`` that some process already hosts) takes the
+    coordinator's place: no rank then has to listen on a port of its own.
+    ``device=None`` is the card
     ``cuda:LOCAL_RANK`` (``LOCAL_RANK`` from the environment, else the rank
     modulo the cards present), made current; ``"cuda:0"`` puts every rank on
     card 0; ``"cpu"`` runs on the CPU. ``backend`` defaults to ``"nccl"`` on
@@ -62,7 +66,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """
     global _DEVICE
     env = os.environ
-    if coordinator_address is None:
+    if coordinator_address is None and store is None:
         if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
             raise RuntimeError(
                 "parallel.initialize needs a coordinator: start the ranks "
@@ -88,9 +92,13 @@ def initialize(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(dev)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend,
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=world, rank=rank)
+    if store is not None:
+        dist.init_process_group(backend, store=store, world_size=world,
+                                rank=rank)
+    else:
+        dist.init_process_group(backend,
+                                init_method=f"tcp://{coordinator_address}",
+                                world_size=world, rank=rank)
     _DEVICE = dev
     return dev
 

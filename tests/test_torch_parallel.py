@@ -227,6 +227,26 @@ def test_initialize_needs_a_coordinator(monkeypatch):
     assert P.process_info() == (0, 1)
 
 
+def test_initialize_joins_a_hosted_store(monkeypatch):
+    """With ``store=`` the group forms through a store the caller already
+    listens on (a port the OS picked), with no coordinator and no
+    environment: how ``spawn``'s ranks join."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
+                                       wait_for_workers=False)
+    try:
+        dev = P.initialize(num_processes=1, process_id=0, device="cpu",
+                           store=store)
+        x = torch.arange(3.0)
+        torch.distributed.all_reduce(x)
+        assert dev == torch.device("cpu") and P.process_info() == (0, 1)
+        assert x.tolist() == [0.0, 1.0, 2.0]
+    finally:
+        P.shutdown()
+    assert P.process_info() == (0, 1)
+
+
 def test_make_mesh_needs_a_rank_per_device():
     """One process per device: outside a process group only the one-device
     mesh exists, and a mesh is the world, not a subset of it."""
