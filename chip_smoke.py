@@ -191,7 +191,28 @@
    ``kiri_tpu``'s, and the bf16 Khmer cluster and codepoint CER of "ctc",
    "decoder" and "beam". The Hugging Face hub is not driven (the machine
    has no network; only local paths are passed);
-12. the parallel phase (one card: ``kiri_tpu_torch.parallel``): (a) NCCL
+12. the evals phase, against ``kiri_tpu``'s answers in
+   ``kiri_tpu_torch/assets/smoke_evals.npz``
+   (``scripts/make_torch_smoke_evals.py``), the pseudo-glyph pool on both
+   sides, each device run with the counters at 0: (a)
+   ``evaluate.eval_recognizer`` over 64 lines, "fast", "accurate" and
+   "beam", plain and with ``degrade`` and ``enhance``: the degraded crops
+   and the crops handed to the resize equal ``kiri_tpu``'s digests (before
+   any recognition), float32 texts and the whole report equal, confidences
+   printed; bf16 CER of each group at most ``kiri_tpu``'s float32 + 0.005;
+   (b) ``eval_detector`` (DB, 2 documents a row): boxes within 1 px,
+   recall, precision and detections equal (where they are not, the pages
+   whose ``_covers`` verdicts the boxes moved are named); (c)
+   ``eval_pipeline`` (DB + deskew + enhance, 2 pages of each of the
+   README's five conditions): float32 rows equal, bf16 with
+   ``preprocess="device"`` each CER at most the stored + 0.005; (d)
+   ``train.recipe.build_samples`` at ``smoke.RECIPE_ARGV``: every line's
+   digest and text, and ``vocab.json``'s bytes, equal; (e)
+   ``scripts/train_torch_recognizer.py --samples 256 --epochs 1
+   --batch-size 64`` from scratch (run in this process): finite losses, its
+   epoch checkpoint served by ``OCR`` over the 64 smoke lines. It prints the
+   detector's and the pipeline's wall times and the phase's;
+13. the parallel phase (one card: ``kiri_tpu_torch.parallel``): (a) NCCL
    at world size 1 in this process (``parallel.initialize``, an all-reduce
    on the card, ``make_mesh(1, 1)``): ``RecognizerEngine(mesh=)`` gives the
    single-device engine's texts and confidences exactly on the 64 smoke
@@ -216,7 +237,7 @@
    not); it prints the phase's wall time and the per-rank ms of a TP-2
    bf16 "ctc" ``recognize_batch`` against the single card, with the card's
    name and power limit;
-13. prints one throughput line per method, one line per streamed method with
+14. prints one throughput line per method, one line per streamed method with
    the time to the first record one-shot and with ``window=8``, the card's
    name and power limit, one ``{"kernels": [...]}`` line, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -3300,6 +3321,236 @@ def _same_texts(got_pages, want_pages):
     return n, same, other, diff
 
 
+def _row_diff(got, want, keys):
+    """{key: (got, want)} of the entries where two report rows differ."""
+    return {k: (got.get(k), want.get(k)) for k in keys
+            if got.get(k) != want.get(k)}
+
+
+def _box_verdicts(page_rects, gt):
+    """(recalled lines, true detections) of ``page_rects`` on ``gt`` lines,
+    by ``evaluate._covers``."""
+    from kiri_tpu_torch.evaluate import _covers
+
+    hits = sum(any(_covers(r, g) for r in page_rects) for g in gt)
+    tps = sum(any(_covers(r, g) for g in gt) for r in page_rects)
+    return hits, tps
+
+
+def evals_phase(torch, np, drive, card):
+    """The accuracy and training-recipe entry points against ``kiri_tpu``'s
+    answers in ``assets/smoke_evals.npz`` (see the module's docstring, item
+    12), the pseudo-glyph pool on both sides."""
+    import math
+    import runpy
+    import shutil
+
+    from kiri_tpu_torch import evaluate as E
+    from kiri_tpu_torch.detect import TextDetector
+    from kiri_tpu_torch.pipeline import OCR
+    from kiri_tpu_torch.smoke import (EVAL_CONDITIONS, EVAL_DET_DOCS,
+                                      EVAL_LINES, EVAL_METHODS, EVAL_PAGES,
+                                      RECIPE_ARGV, digest, load_smoke_evals,
+                                      load_smoke_lines)
+    from kiri_tpu_torch.tokenizer import build_full_vocab
+    from kiri_tpu_torch.train import recipe
+
+    t_phase = time.perf_counter()
+    fx = load_smoke_evals()
+    print(f"evals: fixture made with {fx['versions']}; here numpy "
+          f"{np.__version__}", flush=True)
+    ckpt = str(REPO / "models" / "model.safetensors")
+    det_path = str(REPO / "models" / "detector.safetensors")
+    tmp = Path(tempfile.mkdtemp(prefix="kiri_smoke_evals_"))
+    try:
+        # (a) eval_recognizer: the crops, then float32 and bf16 reports.
+        ocr32 = OCR(ckpt, use_fp16=False, device="cuda")
+        ocr16 = OCR(ckpt, device="cuda")
+        runs = (("plain", {}), ("degrade", dict(degrade=True, enhance=True)))
+        degraded, conds = E.line_samples(ocr32.cfg, EVAL_LINES, degrade=True,
+                                         font_dirs=[])
+        same = sum(digest(s["image"]) == w for s, w in
+                   zip(degraded, fx["recognizer"]["degrade"]["degraded"]))
+        check(same == EVAL_LINES,
+              f"evals degrade_lines: {same}/{EVAL_LINES} degraded crops "
+              f"equal kiri_tpu's ({', '.join(f'{c} {conds.count(c)}' for c in E.LINE_CONDITIONS)})")
+        for key, kw in runs:
+            got = [digest(s["image"]) for s in E.line_samples(
+                ocr32.cfg, EVAL_LINES, font_dirs=[], **kw)[0]]
+            same = sum(a == b for a, b in zip(got, fx["recognizer"][key]
+                                              ["crops"]))
+            check(same == EVAL_LINES,
+                  f"evals recognizer {key}: {same}/{EVAL_LINES} crops "
+                  "handed to the resize equal kiri_tpu's")
+        for key, kw in runs:
+            want = fx["recognizer"][key]
+            outs = {}
+            rep = drive(f"evals recognizer f32 {key}",
+                        lambda: E.eval_recognizer(
+                            ocr32, EVAL_LINES, methods=EVAL_METHODS,
+                            font_dirs=[], outputs=outs, verbose=False, **kw),
+                        ("stem_fused_f32",))
+            for m in EVAL_METHODS:
+                texts = [t for t, _ in outs[m]]
+                ref = [t for t, _ in want["outputs"][m]]
+                dconf = max(abs(float(c) - w[1]) for (_, c), w in
+                            zip(outs[m], want["outputs"][m]))
+                n_same = sum(a == b for a, b in zip(texts, ref))
+                check(n_same == EVAL_LINES and rep[m] == want["report"]
+                      ["report"][m],
+                      f"evals recognizer f32 {key} {m}: {n_same}/"
+                      f"{EVAL_LINES} texts equal kiri_tpu's, report "
+                      f"{'equal' if rep[m] == want['report']['report'][m] else _row_diff(rep[m], want['report']['report'][m], want['report']['report'][m])}"
+                      f"; confidences within {dconf:.2e}")
+            rep16 = drive(f"evals recognizer bf16 {key}",
+                          lambda: E.eval_recognizer(
+                              ocr16, EVAL_LINES, methods=EVAL_METHODS,
+                              font_dirs=[], verbose=False, **kw),
+                          ("stem_fused",))
+            for m in EVAL_METHODS:
+                ref = want["report"]["report"][m]
+                worst = max(rep16[m][g]["cer"] - ref[g]["cer"] for g in ref)
+                check(set(rep16[m]) == set(ref) and worst <= PAGE_CER_SLACK,
+                      f"evals recognizer bf16 {key} {m}: CER "
+                      + ", ".join(f"{g} {rep16[m][g]['cer']} (kiri_tpu f32 "
+                                  f"{ref[g]['cer']})" for g in ref)
+                      + f"; worst excess {worst:+.4f} (limit "
+                      f"{PAGE_CER_SLACK})")
+
+        # (b) eval_detector: boxes within 1 px, the rows equal.
+        det = TextDetector("db", det_path, device="cuda")
+        boxes = {}
+        t0 = time.perf_counter()
+        summ = drive("evals detector", lambda: E.eval_detector(
+            det, EVAL_DET_DOCS, font_dirs=[], boxes=boxes, verbose=False),
+            ())
+        dt = time.perf_counter() - t0
+        want = fx["detector"]
+        worst, counts_ok = 0.0, True
+        for row, pages in want["boxes"].items():
+            for g, w in zip(boxes[row], pages):
+                counts_ok &= len(g) == len(w)
+                for a, b in zip(g, w):
+                    worst = max(worst, max(abs(x - y) for x, y in zip(a, b)))
+        check(counts_ok and worst <= PAGE_BOX_TOL,
+              f"evals detector: every page's box count equal, boxes within "
+              f"{worst:.1f} px of kiri_tpu's (limit {PAGE_BOX_TOL})")
+        moved = []
+        if summ != want["summary"]:
+            for (row, docs), pages in zip(E.detector_rows(
+                    EVAL_DET_DOCS, font_dirs=[]), want["boxes"].values()):
+                for i, (doc, w) in enumerate(zip(docs, pages)):
+                    g = boxes[row][i]
+                    if _box_verdicts(g, doc["lines"]) != \
+                            _box_verdicts(w, doc["lines"]):
+                        moved.append(f"{row}[{i}]")
+        check(summ == want["summary"],
+              f"evals detector: recall, precision and detections of the "
+              f"{summ['total_docs']} documents equal kiri_tpu's "
+              f"(worst {summ['worst_condition']}"
+              + (f"; rows differing: "
+                 f"{ {r: _row_diff(summ['report'][r], v, v) for r, v in want['summary']['report'].items() if summ['report'][r] != v} }; "
+                 f"_covers verdicts moved by the boxes on {moved}"
+                 if summ != want["summary"] else "") + ")")
+        print(f"evals detector (DB, {card}): {summ['total_docs']} documents "
+              f"in {dt:.2f} s, generation included", flush=True)
+
+        # (c) eval_pipeline: float32 rows equal, bf16 with device
+        # preprocessing within the slack.
+        want = fx["pipeline"]["summary"]
+        kw = dict(det_model_path=det_path, decode_method="fast",
+                  deskew=True, enhance=True, device="cuda")
+        ocr_p32 = OCR(ckpt, use_fp16=False, **kw)
+        rows = drive("evals pipeline f32", lambda: E.eval_pipeline(
+            ocr_p32, EVAL_CONDITIONS, EVAL_PAGES, font_dirs=[],
+            verbose=False), ("stem_fused_f32",))
+        for cond in EVAL_CONDITIONS:
+            check(rows[cond] == want[cond],
+                  f"evals pipeline f32 {cond}: row "
+                  + ("equal kiri_tpu's " + json.dumps(rows[cond])
+                     if rows[cond] == want[cond] else
+                     f"DIFFERS {_row_diff(rows[cond], want[cond], want[cond])}"))
+        ocr_p16 = OCR(ckpt, preprocess="device", **kw)
+        t0 = time.perf_counter()
+        rows16 = drive("evals pipeline bf16 device", lambda: E.eval_pipeline(
+            ocr_p16, EVAL_CONDITIONS, EVAL_PAGES, font_dirs=[],
+            verbose=False), ("stem_fused", "preprocess_lines"))
+        dt = time.perf_counter() - t0
+        for cond in EVAL_CONDITIONS:
+            excess = max(rows16[cond][k] - want[cond][k]
+                         for k in ("end2end_cer", "matched_cer", "doc_cer"))
+            check(excess <= PAGE_CER_SLACK,
+                  f"evals pipeline bf16 {cond}: end2end "
+                  f"{rows16[cond]['end2end_cer']} matched "
+                  f"{rows16[cond]['matched_cer']} doc "
+                  f"{rows16[cond]['doc_cer']} recall "
+                  f"{rows16[cond]['line_recall']} (kiri_tpu f32 "
+                  f"{want[cond]['end2end_cer']} / {want[cond]['matched_cer']}"
+                  f" / {want[cond]['doc_cer']} / {want[cond]['line_recall']})"
+                  f"; worst excess {excess:+.4f} (limit {PAGE_CER_SLACK})")
+        n_pages = EVAL_PAGES * len(EVAL_CONDITIONS)
+        print(f"evals pipeline (bf16, DB + deskew + enhance, device "
+              f"preprocessing, {card}): {n_pages} pages in {dt:.2f} s, "
+              f"{n_pages / dt:.2f} pages/s, generation included", flush=True)
+
+        # (d) the recipe's samples and vocab.
+        args = recipe.parser().parse_args(
+            [*RECIPE_ARGV, "--out-dir", str(tmp / "recipe"), "--no-fonts"])
+        t0 = time.perf_counter()
+        train, val = recipe.build_samples(args)
+        dt = time.perf_counter() - t0
+        want = fx["recipe"]
+        for name, got in (("train", train), ("val", val)):
+            same = sum([digest(s["image"]), s["text"]] == w
+                       for s, w in zip(got, want[name]))
+            check(same == len(want[name]) == len(got),
+                  f"evals recipe {name}: {same}/{len(want[name])} lines "
+                  "(bytes and text) equal kiri_tpu's")
+        build_full_vocab(tmp / "vocab.json",
+                         extra_texts=(s["text"] for s in val + train))
+        vocab = (tmp / "vocab.json").read_text(encoding="utf-8")
+        check(vocab == want["vocab"],
+              f"evals recipe vocab.json: {'identical' if vocab == want['vocab'] else 'DIFFERENT'}"
+              f" ({len(json.loads(vocab))} entries)")
+        print(f"evals recipe build_samples (host, {card}): "
+              f"{len(train) + len(val)} lines in {dt:.2f} s", flush=True)
+
+        # (e) the training script from scratch, its checkpoint served.
+        out = tmp / "train"
+        argv = sys.argv
+        sys.argv = ["train_torch_recognizer.py", "--samples", "256",
+                    "--epochs", "1", "--batch-size", "64", "--out-dir",
+                    str(out), "--no-fonts"]
+        t0 = time.perf_counter()
+        try:
+            drive("evals train_torch_recognizer.py", lambda: [runpy.run_path(
+                str(REPO / "scripts" / "train_torch_recognizer.py"),
+                run_name="__main__")], ("stem_fused",))
+        finally:
+            sys.argv = argv
+        dt = time.perf_counter() - t0
+        hist = json.loads((out / "history.json").read_text())
+        losses = [r[k] for r in hist for k in ("loss", "ctc_loss",
+                                               "dec_loss") if k in r]
+        check(len(hist) == 1 and losses and all(map(math.isfinite, losses)),
+              f"evals train_torch_recognizer.py: 1 epoch in {dt:.1f} s, "
+              f"losses {[round(x, 4) for x in losses]} finite")
+        lines, _ = load_smoke_lines()
+        served = OCR(str(out / "model_epoch_1.safetensors"), device="cuda")
+        res = drive("evals trained checkpoint", lambda: served.engine
+                    .recognize_batch(lines["imgs"], "ctc",
+                                     widths=lines["widths"]),
+                    ("stem_fused",))
+        check(len(res) == len(lines["imgs"]) and all(
+            isinstance(t, str) and 0.0 <= c <= 1.0 for t, c in res),
+              f"evals trained checkpoint: {len(res)} lines recognized "
+              "through OCR's engine")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"evals: phase {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+
 def host_and_device_ms(torch, fn, reps: int = 5, match: str = ""):
     """(host ms a call, synchronized; the device's busy ms a call: the sum
     of device-side events under torch.profiler), after one warm-up call.
@@ -3401,6 +3652,7 @@ def main() -> int:
                      card)
     model_files_phase(torch, np, functools.partial(drive_run, counts, by_run),
                       card)
+    evals_phase(torch, np, functools.partial(drive_run, counts, by_run), card)
     for r, launches in enumerate(parallel_phase(
             torch, np, functools.partial(drive_run, counts, by_run), card)):
         by_run[f"parallel rank {r}"] = {k: v for k, v in launches.items()

@@ -137,6 +137,11 @@ def rescale_doc(doc: Dict[str, object], target_h: int,
     return out
 
 
+#: Font sizes of a document's lines (the default pool of
+#: ``DocumentGenerator``).
+DOC_FONT_SIZES = (18, 22, 26, 30, 34)
+
+
 class DocumentGenerator:
     """Renders synthetic documents and their detection ground truth."""
 
@@ -146,7 +151,7 @@ class DocumentGenerator:
                  texts: Optional[Sequence[str]] = None):
         self.width = width
         self.height = height
-        self.fonts = fonts or FontManager(sizes=(18, 22, 26, 30, 34))
+        self.fonts = fonts or FontManager(sizes=DOC_FONT_SIZES)
         self.rng = random.Random(seed)
         self.augment = augment
         self.khmer_ratio = khmer_ratio if self.fonts.khmer_fonts else 0.0

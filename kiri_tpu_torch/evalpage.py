@@ -115,7 +115,8 @@ def score_pages(pages: Sequence[Dict], results: Iterable[List[Dict]],
 
 def eval_condition(ocr, cond: str, n: int, seed: int = 7000,
                    khmer_ratio: float = 0.4, page: int = 640,
-                   deadline: Optional[float] = None) -> Dict:
+                   deadline: Optional[float] = None,
+                   font_dirs: Optional[Sequence[str]] = None) -> Dict:
     """``ocr.process_document`` over ``n`` synthetic pages under one
     robustness condition, scored against their ground truth.
 
@@ -125,8 +126,14 @@ def eval_condition(ocr, cond: str, n: int, seed: int = 7000,
     conditions draw from one ``random.Random`` seeded by the condition's
     CRC-32, as in the JAX package. Past ``deadline`` (a
     ``time.monotonic()`` value) no page is added after the first, and
-    ``docs`` says how many ran."""
-    from .data.docsynth import DocumentGenerator, apply_condition
+    ``docs`` says how many ran. ``font_dirs`` is where the pages' fonts
+    are looked for: None for the system's, ``[]`` for the pseudo-glyph pool
+    only."""
+    from .data.docsynth import (DOC_FONT_SIZES, DocumentGenerator,
+                                apply_condition)
+    from .data.synth import FontManager
+
+    fonts = FontManager(font_dirs=font_dirs, sizes=DOC_FONT_SIZES)
 
     rng = random.Random(seed + zlib.crc32(cond.encode()) % 1000)
     pages, results = [], []
@@ -134,7 +141,7 @@ def eval_condition(ocr, cond: str, n: int, seed: int = 7000,
         if deadline is not None and time.monotonic() > deadline and pages:
             break
         gen = DocumentGenerator(page, page, seed=seed + 13 * i,
-                                khmer_ratio=khmer_ratio)
+                                khmer_ratio=khmer_ratio, fonts=fonts)
         doc = gen.generate()
         upright = doc["lines"]
         if cond != "clean":

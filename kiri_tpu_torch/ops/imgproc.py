@@ -237,16 +237,20 @@ def resize_u8(img: np.ndarray, w: int, h: int, interp: str = "linear"
         _resize_cubic(img, w, h)
 
 
-def rotate_bilinear(img: np.ndarray, angle: float, fill: int) -> np.ndarray:
+def rotate_bilinear(img: np.ndarray, angle: float, fill: int,
+                    expand: bool = False) -> np.ndarray:
     """u8 [H, W] rotated counter-clockwise by ``angle`` degrees about its
     centre, as Pillow's ``Image.rotate(angle, resample=BILINEAR,
-    expand=False, fillcolor=fill)`` computes it.
+    expand=expand, fillcolor=fill)`` computes it.
 
     Pillow builds the inverse affine matrix in float64 with cos and sin
     rounded to 15 decimals, samples at output pixel centres (+0.5), gives
     the fill to every output pixel whose source point lies outside
     [0, W) x [0, H), interpolates the rest with the source edges clamped
-    (a missing lower row is left out) and truncates the result.
+    (a missing lower row is left out) and truncates the result. With
+    ``expand`` the output is ceil(max) - floor(min) of the corners' x and y
+    under that matrix, and the matrix's translation is its image of
+    (-(ow - W) / 2, -(oh - H) / 2).
     """
     img = np.ascontiguousarray(img, np.uint8)
     h, w = img.shape
@@ -255,16 +259,28 @@ def rotate_bilinear(img: np.ndarray, angle: float, fill: int) -> np.ndarray:
         return img.copy()
     if angle == 180:
         return np.ascontiguousarray(img[::-1, ::-1])
-    if angle in (90, 270) and w == h:
+    if angle in (90, 270) and (expand or w == h):
         return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else -1))
     cx, cy = w / 2, h / 2
     a = -math.radians(angle)
     m = [round(math.cos(a), 15), round(math.sin(a), 15), 0.0,
          round(-math.sin(a), 15), round(math.cos(a), 15), 0.0]
-    m[2] = m[0] * -cx + m[1] * -cy + m[2] + cx
-    m[5] = m[3] * -cx + m[4] * -cy + m[5] + cy
-    xo = np.arange(w, dtype=np.float64)[None] + 0.5
-    yo = np.arange(h, dtype=np.float64)[:, None] + 0.5
+
+    def transform(x, y):
+        return m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5]
+
+    m[2], m[5] = transform(-cx, -cy)
+    m[2] += cx
+    m[5] += cy
+    ow, oh = w, h
+    if expand:
+        xx, yy = zip(*(transform(x, y)
+                       for x, y in ((0, 0), (w, 0), (w, h), (0, h))))
+        ow = math.ceil(max(xx)) - math.floor(min(xx))
+        oh = math.ceil(max(yy)) - math.floor(min(yy))
+        m[2], m[5] = transform(-(ow - w) / 2.0, -(oh - h) / 2.0)
+    xo = np.arange(ow, dtype=np.float64)[None] + 0.5
+    yo = np.arange(oh, dtype=np.float64)[:, None] + 0.5
     xin = m[0] * xo + m[1] * yo + m[2]
     yin = m[3] * xo + m[4] * yo + m[5]
     inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)

@@ -4,7 +4,9 @@
 
 The image operations are numpy, with cv2's resizes and grey conversion
 computed as OpenCV computes them (``ops/imgproc.py``): the machine with the
-card has neither cv2 nor PIL.
+card has neither cv2 nor PIL. The reference-exact path for a PIL image
+(``ResizeKeepRatioPadNoCrop``, ``preprocess_pil``, ``preprocess_pil_u8``)
+is Pillow's own, imported when it is called.
 """
 from __future__ import annotations
 
@@ -102,6 +104,46 @@ def resize_keep_ratio_pad_np(img: np.ndarray, h: int, w: int) -> np.ndarray:
     out = np.full((h, w), 128, dtype=np.uint8)
     out[:, : resized.shape[1]] = resized
     return out
+
+
+class ResizeKeepRatioPadNoCrop:
+    """The reference's transform of a PIL image: bilinear resize to height
+    ``h`` with the aspect kept, cropped to ``w`` when wider, else pasted on
+    an "L" canvas of 128 at the left."""
+
+    def __init__(self, h: int, w: int):
+        self.h = h
+        self.w = w
+
+    def __call__(self, img):
+        from ..data.synth import require_pillow
+
+        image = require_pillow("the PIL input path")[0]
+        iw, ih = img.size
+        if ih <= 0 or iw <= 0:
+            return img.resize((self.w, self.h), image.BILINEAR)
+        nw = max(1, int(round(iw * (self.h / float(ih)))))
+        img = img.resize((nw, self.h), image.BILINEAR)
+        if nw >= self.w:
+            return img.crop((0, 0, self.w, self.h))
+        canvas = image.new("L", (self.w, self.h), 128)
+        canvas.paste(img, (0, 0))
+        return canvas
+
+
+def preprocess_pil_u8(cfg, pil) -> np.ndarray:
+    """PIL image -> u8 [IMG_H, IMG_W] (grey, resize, pad; no
+    normalization)."""
+    img = ResizeKeepRatioPadNoCrop(cfg.IMG_H, cfg.IMG_W)(pil.convert("L"))
+    return np.asarray(img, dtype=np.uint8)
+
+
+def preprocess_pil(cfg, pil) -> np.ndarray:
+    """PIL image -> float32 [1, 1, IMG_H, IMG_W] in [-1, 1], computed as
+    the reference does (divide by 255, then centre and scale)."""
+    arr = preprocess_pil_u8(cfg, pil).astype(np.float32) / 255.0
+    arr = (arr - 0.5) / 0.5
+    return arr[None, None]
 
 
 def preprocess_np(cfg, img: np.ndarray) -> np.ndarray:

@@ -53,6 +53,7 @@ SMOKE_GEN = Path(__file__).resolve().parent / "assets" / "smoke_gen.npz"
 SMOKE_Q8 = Path(__file__).resolve().parent / "assets" / "smoke_q8.npz"
 SMOKE_MODELS = (Path(__file__).resolve().parent / "assets"
                 / "smoke_models.npz")
+SMOKE_EVALS = Path(__file__).resolve().parent / "assets" / "smoke_evals.npz"
 #: What the generators fixture was made with (scripts/make_torch_smoke_gen.py).
 GEN_SEED, GEN_LINES, GEN_DOC_SIZE = 42, 64, 640
 GEN_DOC_SIZES = (18, 22, 26, 30, 34)
@@ -673,3 +674,26 @@ def parallel_rank(tmp: str, det_dir: str, timed_reps: int = 5) -> Dict:
              history=hist)
     out["db"] = hist
     return out
+
+
+#: What the evals fixture was made with (scripts/make_torch_smoke_evals.py):
+#: ``eval_recognizer`` lines and methods, documents a row of
+#: ``eval_detector``, pages a condition of ``eval_pipeline`` (with deskew
+#: and enhance) and the recipe's flags for ``build_samples``.
+EVAL_LINES = 64
+EVAL_METHODS = ("fast", "accurate", "beam")
+EVAL_DET_DOCS = 2
+EVAL_PAGES = 2
+EVAL_CONDITIONS = ("clean", "rotated", "low_contrast", "noisy",
+                   "rotated+noisy")
+RECIPE_ARGV = ("--samples", "256", "--doc-crop-ratio", "0.25",
+               "--aug-conditions", "0.5", "--small-render-ratio", "0.2",
+               "--small-resample", "0.5", "--enhance-ratio", "0.2",
+               "--visual-order")
+
+
+def load_smoke_evals() -> Dict:
+    """The evals fixture: one JSON document (see
+    ``scripts/make_torch_smoke_evals.py``)."""
+    with np.load(SMOKE_EVALS) as f:
+        return json.loads(str(f["evals"]))

@@ -1,15 +1,47 @@
-"""Wall-clock accounting of the pipeline's stages (the port of
-``StageTimer`` in ``kiri_tpu/utils/profiling.py``). Each stage is also a
-``torch.profiler.record_function`` range, so it shows on the host timeline of
-a profiler trace."""
+"""Tracing and stage timing (the port of ``kiri_tpu/utils/profiling.py``):
+
+* ``trace(logdir)``: a ``torch.profiler`` trace of the host and the card,
+  written into ``logdir`` as a Chrome trace (``chrome://tracing``,
+  Perfetto);
+* ``annotate(name)``: a named range on the host timeline of such a trace
+  (``torch.profiler.record_function``);
+* ``StageTimer``: wall-clock seconds per named pipeline stage, each stage
+  also an ``annotate`` range.
+"""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
+from pathlib import Path
 from typing import Dict, Iterator
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "kiri_trace") -> Iterator[torch.profiler.profile]:
+    """Profile the block (CPU, and CUDA where a card is present) and write
+    ``logdir/trace_<pid>_<n>.json``, a Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range on the host timeline of a ``trace``."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class StageTimer:
@@ -24,7 +56,7 @@ class StageTimer:
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with annotate(name):
                 yield
         finally:
             self.totals[name] += time.perf_counter() - t0

@@ -1,0 +1,19 @@
+"""The port's pipeline accuracy on synthetic data: ``scripts/eval_pipeline.py``'s
+flags, defaults and JSON lines, run by ``kiri_tpu_torch.evaluate`` on the
+card (``--device cpu`` to run on the CPU; ``--no-fonts`` to draw with the
+pseudo-glyph pool only).
+
+Usage: python scripts/eval_torch_pipeline.py [flags of scripts/eval_pipeline.py]
+           [--device cpu] [--no-fonts]
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from kiri_tpu_torch.evaluate import pipeline_main  # noqa: E402
+
+if __name__ == "__main__":
+    pipeline_main()

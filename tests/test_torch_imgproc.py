@@ -177,3 +177,36 @@ def test_smoke_crops_preprocess_against_the_committed_lines():
     assert [t for t, _ in res] == [str(t) for t in d["batch_texts_f32"]]
     np.testing.assert_allclose([c for _, c in res], d["batch_conf_f32"],
                                atol=5e-4)
+
+
+#: Angles of the expanded rotation: eval_recognizer's 2-6 degrees either
+#: way, and 0.5, 45, 89 and the quarter turns (Pillow's transpose path).
+EXPAND_ANGLES = (2.0, -2.0, 3.37, -4.81, 6.0, -6.0, 0.5, 45.0, 89.0, 90.0,
+                 -90.0, 180.0)
+
+
+@pytest.mark.parametrize("hw", [(48, 160), (48, 161), (47, 320), (49, 641),
+                                (48, 640), (33, 32), (16, 500)])
+def test_rotate_expand_is_pillows(hw):
+    """``rotate_bilinear(expand=True)`` against Pillow 12.1's
+    ``Image.rotate(angle, BILINEAR, expand=True, fillcolor=fill)``, byte for
+    byte and size for size, on odd and even line strips, both fills of the
+    evals, and the rotation back that eval_recognizer's --degrade makes."""
+    from PIL import Image
+
+    from kiri_tpu_torch.ops.imgproc import rotate_bilinear
+
+    rng = np.random.default_rng(hw[0] * 1000 + hw[1])
+    img = rng.integers(0, 256, hw, dtype=np.uint8)
+    img[:, : hw[1] // 3] = 255
+    for angle in EXPAND_ANGLES + tuple(rng.uniform(-6, 6, 3)):
+        for fill in (255, 0):
+            want = np.asarray(Image.fromarray(img).rotate(
+                angle, resample=Image.BILINEAR, expand=True, fillcolor=fill))
+            got = rotate_bilinear(img, angle, fill, expand=True)
+            assert got.shape == want.shape, (angle, fill)
+            np.testing.assert_array_equal(got, want)
+            back = np.asarray(Image.fromarray(want).rotate(
+                -angle, resample=Image.BILINEAR, expand=True, fillcolor=fill))
+            np.testing.assert_array_equal(
+                rotate_bilinear(got, -angle, fill, expand=True), back)
