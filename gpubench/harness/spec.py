@@ -1,0 +1,48 @@
+"""A cell as ``BENCHMARK.json`` and the files it names describe it.
+
+``load_cell(name)`` gathers, by name only: the cell's entry in
+``BENCHMARK.json``, its configuration file, its traffic mix, its check
+(``workloads/<cell>.json``), and the metrics that list it (a metric with
+no ``workloads`` key belongs to every cell that reports the end-to-end
+metric it moves).
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict
+
+HERE = Path(__file__).resolve().parents[1]
+ROOT = HERE.parent
+
+
+def load_benchmark(root: Path = ROOT) -> Dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def _listed(metric: Dict, cell: str, default: bool) -> bool:
+    return cell in metric["workloads"] if "workloads" in metric else default
+
+
+def load_cell(name: str, root: Path = ROOT) -> Dict:
+    bench = load_benchmark(root)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise SystemExit(f"gpubench: no cell {name!r} in BENCHMARK.json "
+                         f"(cells: {sorted(cells)})")
+    w = cells[name]
+    config = next(c for c in bench["configs"] if c["name"] == w["config"])
+    e2e = [m for m in bench["end_to_end"] if _listed(m, name, True)]
+    moved = {m["name"] for m in e2e}
+    per_layer = [m for m in bench["per_layer"]
+                 if _listed(m, name, m["moves"] in moved)]
+    return {
+        "name": name, "chips": int(w["chips"]), "root": root,
+        "config": json.loads((root / config["file"]).read_text()),
+        "mix": json.loads((HERE / "traffic" / "mixes"
+                           / f"{w['traffic']}.json").read_text()),
+        "check": json.loads((HERE / "workloads"
+                             / f"{name}.json").read_text()),
+        "end_to_end": {m["name"]: m for m in e2e},
+        "per_layer": {m["name"]: m for m in per_layer},
+    }
