@@ -31,6 +31,7 @@ import numpy as np
 
 from ..ops.preprocess import to_gray
 from ..utils.imageio import imread_bgr
+from ..utils.profiling import annotate
 from .base import DetectionLevel, TextBox
 from .craft import CRAFTDetector
 from .db import DBDetector
@@ -198,8 +199,10 @@ class TextDetector:
             detected = self.db_detector.detect_text(image)
         else:
             detected = self.craft_detector.detect_text(image)
-        boxes = self._process_boxes_objects(detected, **self._backend()[1])
-        return self._split_column_merges(image, boxes)
+        with annotate("detect.layout"):
+            boxes = self._process_boxes_objects(detected,
+                                                **self._backend()[1])
+            return self._split_column_merges(image, boxes)
 
     def iter_lines_objects_batch(self, images):
         """Yield ``(page index, TextBox list)`` over many pages in the order
@@ -241,8 +244,9 @@ class TextDetector:
                               None))
         for i, detected in backend_iter([p[0] for p in preps]):
             upright, angle, est, shape = preps[i]
-            boxes = self._process_boxes_objects(detected, **post_kwargs)
-            boxes = self._split_column_merges(upright, boxes)
+            with annotate("detect.layout"):
+                boxes = self._process_boxes_objects(detected, **post_kwargs)
+                boxes = self._split_column_merges(upright, boxes)
             if angle:
                 kept, boxes = self._to_input_frame(boxes, angle, shape)
                 state[i] = (upright, kept, angle)

@@ -14,6 +14,8 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count
+
 #: Batch-size buckets: pages of one canvas shape share a batch per bucket.
 BATCH_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8)
 
@@ -50,10 +52,15 @@ def iter_grouped_batches(canvases: Sequence[np.ndarray],
         for s in range(0, len(idxs), max_b):
             chunk = idxs[s: s + max_b]
             nb = next(b for b in buckets if b >= len(chunk))
-            arr = np.stack([canvases[i] for i in chunk]
-                           + [canvases[chunk[-1]]] * (nb - len(chunk)))
-            pending.append((chunk, _to_host_async(fwd(arr)[:len(chunk)])))
+            with annotate("detect.forward"):
+                arr = np.stack([canvases[i] for i in chunk]
+                               + [canvases[chunk[-1]]] * (nb - len(chunk)))
+                pending.append((chunk,
+                                _to_host_async(fwd(arr)[:len(chunk)])))
     for chunk, (host, ev) in pending:
-        if ev is not None:
-            ev.synchronize()
-        yield chunk, host.numpy()
+        with annotate("detect.wait"):
+            if ev is not None:
+                count("host_waits")
+                ev.synchronize()
+            arr = host.numpy()
+        yield chunk, arr

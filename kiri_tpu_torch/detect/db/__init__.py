@@ -33,6 +33,7 @@ from ...device import no_tf32, resolve_device
 from ...ops.imgproc import resize_f32_linear, resize_u8
 from ...ops.preprocess import invert_if_dark, to_gray
 from ...utils.imageio import imread_bgr
+from ...utils.profiling import annotate, count
 from .net import DBNet, build_db_net, flat_from_state_dict
 
 #: ImageNet normalization of the PP-OCR graphs' RGB input.
@@ -157,12 +158,13 @@ class DBDetector:
                  ) -> np.ndarray:
         """u16 map -> float32 prob cropped to the content (resized back to
         the canvas with det_map_downsample > 1)."""
-        prob = wire.astype(np.float32) / 65535.0
-        ds = self.det_map_downsample
-        if ds > 1:
-            prob = resize_f32_linear(prob, prob.shape[1] * ds,
-                                     prob.shape[0] * ds)
-        return prob[:net_h, :net_w]
+        with annotate("detect.boxes"):
+            prob = wire.astype(np.float32) / 65535.0
+            ds = self.det_map_downsample
+            if ds > 1:
+                prob = resize_f32_linear(prob, prob.shape[1] * ds,
+                                         prob.shape[0] * ds)
+            return prob[:net_h, :net_w]
 
     # -------------------------------------------------------------- inference
     @torch.inference_mode()
@@ -191,8 +193,13 @@ class DBDetector:
 
     def predict_maps(self, img: np.ndarray) -> Tuple[np.ndarray, Tuple]:
         """Gray u8 page -> (prob map cropped to the content, scale info)."""
-        canvas, (net_h, net_w), (orig_h, orig_w) = self._resize_image(img)
-        wire = self.forward_wire(canvas[None]).cpu().numpy()[0]
+        with annotate("detect.resize"):
+            canvas, (net_h, net_w), (orig_h, orig_w) = self._resize_image(img)
+        with annotate("detect.forward"):
+            wire = self.forward_wire(canvas[None])
+        count("host_waits")
+        with annotate("detect.wait"):
+            wire = wire.cpu().numpy()[0]
         return (self._to_prob(wire.astype(np.uint16), net_h, net_w),
                 (net_h, net_w, orig_h, orig_w))
 
@@ -202,10 +209,12 @@ class DBDetector:
         from .._batch import iter_grouped_batches
 
         canvases, infos = [], []
-        for img in imgs:
-            canvas, (net_h, net_w), (orig_h, orig_w) = self._resize_image(img)
-            canvases.append(canvas)
-            infos.append((net_h, net_w, orig_h, orig_w))
+        with annotate("detect.resize"):
+            for img in imgs:
+                canvas, (net_h, net_w), (orig_h, orig_w) = \
+                    self._resize_image(img)
+                canvases.append(canvas)
+                infos.append((net_h, net_w, orig_h, orig_w))
         for chunk, arr in iter_grouped_batches(canvases, self.forward_wire):
             for r, i in enumerate(chunk):
                 net_h, net_w, _, _ = infos[i]
@@ -222,8 +231,9 @@ class DBDetector:
     def iter_detect_text(self, images: List):
         """Yield (page index, ``detect_text`` result) in the order the
         batched forwards finish (canvas groups, not input order)."""
-        grays = [invert_if_dark(self._to_gray(self._load_bgr(image)))
-                 for image in images]
+        with annotate("detect.resize"):
+            grays = [invert_if_dark(self._to_gray(self._load_bgr(image)))
+                     for image in images]
         for i, pred, (_, _, orig_h, orig_w) in self._iter_maps_batch(grays):
             boxes, scores = self._finish_page(pred, orig_w, orig_h)
             yield i, self._padded_sorted(boxes, scores)
@@ -284,24 +294,27 @@ class DBDetector:
 
     def _finish_page(self, pred: np.ndarray, orig_w: int, orig_h: int):
         """prob map -> (raw boxes, scores), for one page and for batches."""
-        bitmap = (pred > self.det_db_thresh).astype(np.uint8)
-        if self.debug:
-            print(f"  pred {pred.shape} max={pred.max():.3f} "
-                  f"fg={int(bitmap.sum())}")
-        return self._boxes_from_bitmap(pred, bitmap, orig_w, orig_h)
+        with annotate("detect.boxes"):
+            bitmap = (pred > self.det_db_thresh).astype(np.uint8)
+            if self.debug:
+                print(f"  pred {pred.shape} max={pred.max():.3f} "
+                      f"fg={int(bitmap.sum())}")
+            return self._boxes_from_bitmap(pred, bitmap, orig_w, orig_h)
 
     def _padded_sorted(self, boxes, scores):
         """raw boxes -> smart-padded (box, score) list in reading order."""
-        if not boxes:
-            return []
-        padded = self._apply_smart_padding(boxes)
-        return self._sort_boxes_reading_order(list(zip(padded, scores)))
+        with annotate("detect.layout"):
+            if not boxes:
+                return []
+            padded = self._apply_smart_padding(boxes)
+            return self._sort_boxes_reading_order(list(zip(padded, scores)))
 
     def detect(self, img: np.ndarray, return_scores: bool = False):
         if img is None:
             return ([], []) if return_scores else []
         # Dark pages (light text on black) are inverted first.
-        gray = invert_if_dark(self._to_gray(img))
+        with annotate("detect.resize"):
+            gray = invert_if_dark(self._to_gray(img))
         pred, (_, _, orig_h, orig_w) = self.predict_maps(gray)
         boxes, scores = self._finish_page(pred, orig_w, orig_h)
         return (boxes, scores) if return_scores else boxes

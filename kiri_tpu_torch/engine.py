@@ -56,6 +56,7 @@ from .ops import decode as D
 from .ops.ctc import greedy_ctc_stats
 from .ops.preprocess import pick_batch_bucket, pick_width_bucket
 from .tokenizer import CharTokenizer
+from .utils.profiling import annotate, count
 
 Result = Tuple[str, float]
 METHODS = ("ctc", "decoder", "beam", "auto")
@@ -76,21 +77,24 @@ def _unpack4(packed_u8: torch.Tensor) -> torch.Tensor:
 
 
 def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Copy float32, int32 and bool tensors to the host in one transfer."""
-    flat = torch.cat([(t.to(torch.int32) if t.dtype == torch.bool else t)
-                      .reshape(-1).view(torch.int32) for t in tensors])
-    flat = flat.cpu().numpy()
-    out, o = [], 0
-    for t in tensors:
-        n = t.numel()
-        part = flat[o: o + n]
-        if t.dtype == torch.float32:
-            part = part.view(np.float32)
-        elif t.dtype == torch.bool:
-            part = part.astype(bool)
-        out.append(part.reshape(tuple(t.shape)))
-        o += n
-    return out
+    """Copy float32, int32 and bool tensors to the host in one transfer:
+    one wait for the device."""
+    count("host_waits")
+    with annotate("engine.fetch"):
+        flat = torch.cat([(t.to(torch.int32) if t.dtype == torch.bool else t)
+                          .reshape(-1).view(torch.int32) for t in tensors])
+        flat = flat.cpu().numpy()
+        out, o = [], 0
+        for t in tensors:
+            n = t.numel()
+            part = flat[o: o + n]
+            if t.dtype == torch.float32:
+                part = part.view(np.float32)
+            elif t.dtype == torch.bool:
+                part = part.astype(bool)
+            out.append(part.reshape(tuple(t.shape)))
+            o += n
+        return out
 
 
 class Encoded(NamedTuple):
@@ -183,32 +187,35 @@ class RecognizerEngine:
     @torch.inference_mode()
     def _encode(self, images: torch.Tensor, n: int, project: bool = True
                 ) -> Encoded:
-        mem = self.model.encode(images, self.dtype)
-        if self.cfg.USE_CTC:
-            ctc = self.model.ctc_logits(mem)
-            ids, conf, est = greedy_ctc_stats(ctc, self.tok.ctc_offset)
-        else:
-            ctc, (b, t) = None, mem.shape[:2]
-            ids = torch.zeros((b, t), dtype=torch.int32, device=mem.device)
-            conf = torch.zeros(b, dtype=torch.float32, device=mem.device)
-            est = torch.zeros(b, dtype=torch.int32, device=mem.device)
-        memp = self.model.mem_project(mem) if project else None
-        return Encoded(memp, ctc, ids, conf, est, n)
+        with annotate("engine.encode"):
+            mem = self.model.encode(images, self.dtype)
+            if self.cfg.USE_CTC:
+                ctc = self.model.ctc_logits(mem)
+                ids, conf, est = greedy_ctc_stats(ctc, self.tok.ctc_offset)
+            else:
+                ctc, (b, t) = None, mem.shape[:2]
+                ids = torch.zeros((b, t), dtype=torch.int32, device=mem.device)
+                conf = torch.zeros(b, dtype=torch.float32, device=mem.device)
+                est = torch.zeros(b, dtype=torch.int32, device=mem.device)
+            memp = self.model.mem_project(mem) if project else None
+            return Encoded(memp, ctc, ids, conf, est, n)
 
     def _encode_u8(self, imgs_u8: np.ndarray, project: bool = True
                    ) -> Encoded:
         """Pad u8 [N, H, W] with blank rows to its batch bucket, upload and
         encode."""
-        imgs_u8 = np.asarray(imgs_u8, np.uint8)
-        n = imgs_u8.shape[0]
-        pad = pick_batch_bucket(self.cfg, n) - n
-        if pad:
-            imgs_u8 = np.concatenate(
-                [imgs_u8, np.zeros((pad,) + imgs_u8.shape[1:], np.uint8)])
-        if self.upload_bits == 4:
-            x = _unpack4(torch.from_numpy(pack4(imgs_u8)).to(self.device))
-        else:
-            x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
+        with annotate("engine.upload"):
+            imgs_u8 = np.asarray(imgs_u8, np.uint8)
+            n = imgs_u8.shape[0]
+            pad = pick_batch_bucket(self.cfg, n) - n
+            if pad:
+                imgs_u8 = np.concatenate(
+                    [imgs_u8, np.zeros((pad,) + imgs_u8.shape[1:], np.uint8)])
+            if self.upload_bits == 4:
+                x = _unpack4(torch.from_numpy(pack4(imgs_u8)).to(self.device))
+            else:
+                x = torch.from_numpy(
+                    np.ascontiguousarray(imgs_u8)).to(self.device)
         return self._encode(x, n, project)
 
     def encode_batch(self, imgs_u8: np.ndarray):
@@ -295,11 +302,12 @@ class RecognizerEngine:
         ``raw_select``)."""
         if self.cfg.SPEC_DECODE and ctc is not None:
             rescore = not raw_select and self.cfg.ACCURATE_CTC_RESCORE
-            return D.spec_decode(
-                self.model, memp, ids, tl, None if raw_select else conf,
-                cfg=self.cfg, l_cap=l_cap, raw_select=raw_select,
-                max_rounds=self.cfg.SPEC_MAX_ROUNDS,
-                ctc_logits=ctc if rescore else None, **self._ids)
+            with annotate("decode.spec"):
+                return D.spec_decode(
+                    self.model, memp, ids, tl, None if raw_select else conf,
+                    cfg=self.cfg, l_cap=l_cap, raw_select=raw_select,
+                    max_rounds=self.cfg.SPEC_MAX_ROUNDS,
+                    ctc_logits=ctc if rescore else None, **self._ids)
         if raw_select:
             return D.greedy_decode(
                 self.model, memp, tl, cfg=self.cfg, l_cap=l_cap,
@@ -312,17 +320,18 @@ class RecognizerEngine:
         """Decode the given rows again with the step loop: ``spec_decode``'s
         fallback for rows past its round budget. The rows are gathered on
         the device from the chunk's encoder outputs."""
-        memp, ctc, conf, tl = self._gather_rows(rows, e.memp, e.ctc, e.conf,
-                                                tl_np)
-        bound = self._step_bound(tl_np[rows], memp.shape[1], l_cap)
-        if raw_select:
-            with torch.inference_mode():
-                return D.greedy_decode(
-                    self.model, memp, tl, cfg=self.cfg, l_cap=l_cap,
-                    step_bound=bound, eos_id=self.tok.dec_eos,
-                    unk_dec_id=self._ids["unk_dec_id"],
-                    bos_id=self.tok.dec_bos)
-        return self._launch_beam(memp, ctc, tl, conf, l_cap, bound, 1)
+        with annotate("decode.step_loop"):
+            memp, ctc, conf, tl = self._gather_rows(rows, e.memp, e.ctc,
+                                                    e.conf, tl_np)
+            bound = self._step_bound(tl_np[rows], memp.shape[1], l_cap)
+            if raw_select:
+                with torch.inference_mode():
+                    return D.greedy_decode(
+                        self.model, memp, tl, cfg=self.cfg, l_cap=l_cap,
+                        step_bound=bound, eos_id=self.tok.dec_eos,
+                        unk_dec_id=self._ids["unk_dec_id"],
+                        bos_id=self.tok.dec_bos)
+            return self._launch_beam(memp, ctc, tl, conf, l_cap, bound, 1)
 
     def _launch_escalation(self, e: Encoded, conf_np: np.ndarray,
                            est_np: np.ndarray):
@@ -358,7 +367,8 @@ class RecognizerEngine:
         for (idxs, _), f in zip(launched, fields):
             tokens, lengths, final_conf = (next(fetched) for _ in range(3))
             conv.append(next(fetched)[:len(idxs)] if len(f) > 3 else None)
-            texts = self._decode_texts(tokens[:len(idxs)], lengths)
+            with annotate("engine.texts"):
+                texts = self._decode_texts(tokens[:len(idxs)], lengths)
             for i, t, c in zip(idxs, texts, final_conf):
                 out[i] = (t, float(c))
         return conv
@@ -380,9 +390,11 @@ class RecognizerEngine:
             for c, (idxs, e) in enumerate(chunks):
                 ids_np, conf_np = (a[:e.n] for a in
                                    fetched[per * c: per * c + 2])
-                for i, t, cf in zip(idxs, self.tok.decode_ctc_batch(ids_np),
-                                    conf_np):
-                    out[i] = (t, float(cf))
+                with annotate("engine.texts"):
+                    for i, t, cf in zip(idxs,
+                                        self.tok.decode_ctc_batch(ids_np),
+                                        conf_np):
+                        out[i] = (t, float(cf))
                 if method == "auto":
                     esc = self._launch_escalation(e, conf_np,
                                                   fetched[per * c + 2][:e.n])
@@ -407,7 +419,8 @@ class RecognizerEngine:
         for (idxs, e), est_np in zip(chunks, ests):
             l_cap = self._step_cap(est_np, e.n, e.memp.shape[1])
             tl_np = np.where(est_np > 0, est_np, 0).astype(np.int32)
-            tl = torch.from_numpy(tl_np).to(self.device)
+            with annotate("engine.upload"):
+                tl = torch.from_numpy(tl_np).to(self.device)
             bound = self._step_bound(tl_np, e.memp.shape[1], l_cap)
             dec = (self._launch_single_hyp(e.memp, e.ctc, e.ids, tl, e.conf,
                                            l_cap, bound) if k == 1 else
@@ -460,17 +473,18 @@ class RecognizerEngine:
             return self._recognize(
                 [(list(range(n)), self._encode_u8(imgs_u8, project))],
                 method, n)
-        groups: Dict[int, List[int]] = {}
-        for i in range(n):
-            groups.setdefault(pick_width_bucket(self.cfg, int(widths[i])),
-                              []).append(i)
-        max_b = int(self.cfg.BATCH_BUCKETS[-1])
-        chunks = []
-        for bw, idxs in sorted(groups.items()):
-            for s in range(0, len(idxs), max_b):
-                chunk = idxs[s: s + max_b]
-                chunks.append((chunk, self._encode_u8(
-                    imgs_u8[np.asarray(chunk), :, :bw], project)))
+        with annotate("engine.group"):
+            groups: Dict[int, List[int]] = {}
+            for i in range(n):
+                groups.setdefault(pick_width_bucket(self.cfg, int(widths[i])),
+                                  []).append(i)
+            max_b = int(self.cfg.BATCH_BUCKETS[-1])
+            chunks = []
+            for bw, idxs in sorted(groups.items()):
+                for s in range(0, len(idxs), max_b):
+                    chunk = idxs[s: s + max_b]
+                    chunks.append((chunk, self._encode_u8(
+                        imgs_u8[np.asarray(chunk), :, :bw], project)))
         return self._recognize(chunks, method, n)
 
     def recognize_crops(self, crops: Sequence[np.ndarray], method: str,
@@ -499,6 +513,17 @@ class RecognizerEngine:
 
     def _recognize_crops(self, crops: List[np.ndarray], method: str,
                          enhance: bool, sharpen) -> List[Result]:
+        with annotate("engine.upload"):
+            norm, n = self._upload_crops(crops, enhance, sharpen)
+        return self._recognize(
+            [(list(range(n)), self._encode(norm, n, method != "ctc"))],
+            method, n)
+
+    def _upload_crops(self, crops: List[np.ndarray], enhance: bool, sharpen
+                      ) -> Tuple[torch.Tensor, int]:
+        """Pack the crops, pad them to their batch bucket, upload them and
+        preprocess them on the device: (normalized lines, number of
+        crops)."""
         buf, sizes = pack_crops(crops)
         n = buf.shape[0]
         pad = pick_batch_bucket(self.cfg, n) - n
@@ -523,9 +548,7 @@ class RecognizerEngine:
                                     self.cfg.IMG_W)
             if enhance:
                 norm = post_blur_masked(norm, small_noisy)
-        return self._recognize(
-            [(list(range(n)), self._encode(norm, n, method != "ctc"))],
-            method, n)
+        return norm, n
 
     # ------------------------------------------------------ beam dispatch
     def beam_device_bucketed(self, memp: torch.Tensor, ctc: torch.Tensor,
@@ -590,9 +613,11 @@ class RecognizerEngine:
         with torch.inference_mode():
             memp, ctc, ids, conf = (t[:n] for t in (memp, ctc, ids, conf))
             tl = torch.from_numpy(tl_np).to(self.device)
-            spec = D.spec_decode(
-                self.model, memp, ids, tl, conf, cfg=self.cfg, l_cap=l_cap,
-                max_rounds=self.cfg.SPEC_MAX_ROUNDS, **self._ids)
+            with annotate("decode.spec"):
+                spec = D.spec_decode(
+                    self.model, memp, ids, tl, conf, cfg=self.cfg,
+                    l_cap=l_cap, max_rounds=self.cfg.SPEC_MAX_ROUNDS,
+                    **self._ids)
             cert = D.beam_spec_certificate(
                 self.model, memp, ctc, tl, spec.tokens, spec.lengths,
                 cfg=self.cfg, k_beam=self.cfg.BEAM, l_cap=l_cap,

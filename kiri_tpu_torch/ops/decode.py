@@ -13,7 +13,10 @@ the step counter a host integer. A loop's end condition lives on the device,
 so ``beam_search`` and ``greedy_decode`` run to a bound the host knows and
 look at the device's condition only every few steps: lines that are finished
 or past their own budget are frozen bit for bit, so steps past the end
-change nothing (``poll_every``).
+change nothing (``poll_every``). Under a profiler each step loop is one
+``decode.step_loop`` span and each ``spec_decode`` round a ``decode.round``
+span; every look at the device counts in ``host_waits``
+(``utils/profiling.py``).
 
 The same steps run a window at a time for streaming
 (``beam_stream_window``, ``greedy_stream_window``: the state stays on the
@@ -32,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count
 from .ctc import NEG_INF, ctc_alignment_scores
 
 #: Steps between two looks at the device's end-of-loop condition.
@@ -227,6 +231,15 @@ def _step_bound(max_steps: torch.Tensor, step_bound: Optional[int]) -> int:
     return int(max_steps.max()) if step_bound is None else int(step_bound)
 
 
+def _poll(t: int, poll_every: int) -> bool:
+    """Whether a step loop asks the device after step ``t`` if any line is
+    still active: a host wait, counted."""
+    if not (poll_every and (t + 1) % poll_every == 0):
+        return False
+    count("host_waits")
+    return True
+
+
 # ==========================================================================
 # Beam search
 # ==========================================================================
@@ -373,18 +386,19 @@ def beam_search(model, mem_proj: torch.Tensor,
     steps_done = torch.zeros((n,), dtype=torch.int32, device=dev)
     hist = _new_history(n, l_cap, l_buf, dev) if record_history else None
 
-    for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
-        (tokens, scores, lengths, finished, cache, steps_done,
-         active) = _beam_step(
-            model, cross_kvs, target_len, max_steps, t, tokens, scores,
-            lengths, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
-            unk_dec_id=unk_dec_id)
-        if hist is not None:
-            _record(hist, t, active,
-                    _stream_best(cfg, tokens, scores, lengths, finished))
-        if poll_every and (t + 1) % poll_every == 0 and not bool(
-                ((t + 1 < max_steps) & ~finished.all(dim=1)).any()):
-            break
+    with annotate("decode.step_loop"):
+        for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
+            (tokens, scores, lengths, finished, cache, steps_done,
+             active) = _beam_step(
+                model, cross_kvs, target_len, max_steps, t, tokens, scores,
+                lengths, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
+                unk_dec_id=unk_dec_id)
+            if hist is not None:
+                _record(hist, t, active,
+                        _stream_best(cfg, tokens, scores, lengths, finished))
+            if _poll(t, poll_every) and not bool(
+                    ((t + 1 < max_steps) & ~finished.all(dim=1)).any()):
+                break
 
     # ---- final scoring with CTC fusion ----
     L = (lengths - 1).clamp(min=1).float()
@@ -495,62 +509,67 @@ def spec_decode(model, mem_proj: torch.Tensor,
 
     rounds = 0
     while max_rounds <= 0 or rounds < max_rounds:
-        active = ~finished & (acc_len - 1 < max_steps)
-        if not bool(active.any()):
-            break
-        dec_logits, lm_logits = model.decoder_forward_heads(mem_proj, tokens)
-        logp = apply_penalties_seq(_fused_logp(dec_logits, lm_logits, cfg),
-                                   tokens, cfg, target_len, eos_id,
-                                   unk_dec_id)
-        if raw_select:
-            chosen = dec_logits.argmax(dim=-1)
-            chosen_prob = torch.softmax(dec_logits, dim=-1).amax(dim=-1)
-        else:
-            chosen = logp.argmax(dim=-1)
-            chosen_prob = torch.zeros_like(hist_prob)
-        chosen_logp = logp.gather(2, chosen[..., None])[..., 0]
-        chosen = chosen.to(torch.int32)
+        with annotate("decode.round"):
+            active = ~finished & (acc_len - 1 < max_steps)
+            count("host_waits")
+            if not bool(active.any()):
+                break
+            dec_logits, lm_logits = model.decoder_forward_heads(mem_proj,
+                                                                tokens)
+            logp = apply_penalties_seq(_fused_logp(dec_logits, lm_logits, cfg),
+                                       tokens, cfg, target_len, eos_id,
+                                       unk_dec_id)
+            if raw_select:
+                chosen = dec_logits.argmax(dim=-1)
+                chosen_prob = torch.softmax(dec_logits, dim=-1).amax(dim=-1)
+            else:
+                chosen = logp.argmax(dim=-1)
+                chosen_prob = torch.zeros_like(hist_prob)
+            chosen_logp = logp.gather(2, chosen[..., None])[..., 0]
+            chosen = chosen.to(torch.int32)
 
-        # Accept while the choice equals the proposed next token; stop at
-        # the first divergence / end of proposal / step budget and append
-        # the model's own choice there.
-        prop_next = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                              dim=1)
-        in_prop = pos + 1 < prop_len[:, None]
-        if rescore and rounds == 0:
-            # Round 1's proposal is the CTC draft, teacher-forced at every
-            # position: its step-loop score (the penalized logp of each draft
-            # token, plus eos after the whole draft) is read off here.
-            tok_logp = logp.gather(2, prop_next.long()[..., None])[..., 0]
-            eos_pos = (prop_len - 1).clamp(min=0).long()[:, None]
-            eos_lp = logp[..., eos_id].gather(1, eos_pos)[:, 0]
-            draft_score = (torch.where(in_prop, tok_logp, 0.0).sum(1)
-                           + eos_lp)
-        good = in_prop & (pos < max_steps[:, None]) & (chosen == prop_next)
-        bad = (pos >= (acc_len - 1)[:, None]) & ~good
-        p_stop = bad.to(torch.int8).argmax(dim=1).to(torch.int32)
-        can_append = p_stop < max_steps
-        corr = chosen.gather(1, p_stop.long()[:, None])[:, 0]
+            # Accept while the choice equals the proposed next token; stop at
+            # the first divergence / end of proposal / step budget and append
+            # the model's own choice there.
+            prop_next = torch.cat([tokens[:, 1:],
+                                   torch.zeros_like(tokens[:, :1])], dim=1)
+            in_prop = pos + 1 < prop_len[:, None]
+            if rescore and rounds == 0:
+                # Round 1's proposal is the CTC draft, teacher-forced at
+                # every position: its step-loop score (the penalized logp of
+                # each draft token, plus eos after the whole draft) is read
+                # off here.
+                tok_logp = logp.gather(2, prop_next.long()[..., None])[..., 0]
+                eos_pos = (prop_len - 1).clamp(min=0).long()[:, None]
+                eos_lp = logp[..., eos_id].gather(1, eos_pos)[:, 0]
+                draft_score = (torch.where(in_prop, tok_logp, 0.0).sum(1)
+                               + eos_lp)
+            good = in_prop & (pos < max_steps[:, None]) & (chosen == prop_next)
+            bad = (pos >= (acc_len - 1)[:, None]) & ~good
+            p_stop = bad.to(torch.int8).argmax(dim=1).to(torch.int32)
+            can_append = p_stop < max_steps
+            corr = chosen.gather(1, p_stop.long()[:, None])[:, 0]
 
-        new_acc_len = torch.where(active,
-                                  p_stop + 1 + can_append.to(torch.int32),
-                                  acc_len)
-        stepm = ((pos >= (acc_len - 1)[:, None])
-                 & (pos < (new_acc_len - 1)[:, None]))
-        score = torch.where(
-            active, score + torch.where(stepm, chosen_logp, 0.0).sum(1),
-            score)
-        wr = active & can_append
-        wpos = (p_stop + 1).clamp(max=l_buf - 1).long()
-        tokens[rows_n, wpos] = torch.where(wr, corr, tokens[rows_n, wpos])
-        finished = torch.where(wr, corr == eos_id, finished)
-        # A substitution leaves the draft's tail after the corrected
-        # position proposed as it was, so prop_len only grows.
-        prop_len = torch.where(active, torch.maximum(prop_len, new_acc_len),
-                               prop_len)
-        hist_prob = torch.where(active[:, None], chosen_prob, hist_prob)
-        acc_len = new_acc_len
-        rounds += 1
+            new_acc_len = torch.where(active,
+                                      p_stop + 1 + can_append.to(torch.int32),
+                                      acc_len)
+            stepm = ((pos >= (acc_len - 1)[:, None])
+                     & (pos < (new_acc_len - 1)[:, None]))
+            score = torch.where(
+                active, score + torch.where(stepm, chosen_logp, 0.0).sum(1),
+                score)
+            wr = active & can_append
+            wpos = (p_stop + 1).clamp(max=l_buf - 1).long()
+            tokens[rows_n, wpos] = torch.where(wr, corr, tokens[rows_n, wpos])
+            finished = torch.where(wr, corr == eos_id, finished)
+            # A substitution leaves the draft's tail after the corrected
+            # position proposed as it was, so prop_len only grows.
+            prop_len = torch.where(active,
+                                   torch.maximum(prop_len, new_acc_len),
+                                   prop_len)
+            hist_prob = torch.where(active[:, None], chosen_prob, hist_prob)
+            acc_len = new_acc_len
+            rounds += 1
     converged = finished | (acc_len - 1 >= max_steps)
 
     if rescore:
@@ -647,18 +666,20 @@ def greedy_decode(model, mem_proj: torch.Tensor, target_len: torch.Tensor,
     steps_done = torch.zeros((n,), dtype=torch.int32, device=dev)
     hist_extra = torch.zeros((n, l_cap, 2), device=dev)
 
-    for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
-        (tokens, lengths, score, finished, steps_done, active, best_prob,
-         best_id, _) = _greedy_step(
-            model, cross_kvs, target_len, max_steps, t, tokens, lengths,
-            score, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
-            unk_dec_id=unk_dec_id)
-        hist_extra[:, t] = torch.where(
-            active[:, None], torch.stack([best_prob, best_id.float()], -1),
-            hist_extra[:, t])
-        if poll_every and (t + 1) % poll_every == 0 and not bool(
-                ((t + 1 < max_steps) & ~finished).any()):
-            break
+    with annotate("decode.step_loop"):
+        for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
+            (tokens, lengths, score, finished, steps_done, active, best_prob,
+             best_id, _) = _greedy_step(
+                model, cross_kvs, target_len, max_steps, t, tokens, lengths,
+                score, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
+                unk_dec_id=unk_dec_id)
+            hist_extra[:, t] = torch.where(
+                active[:, None],
+                torch.stack([best_prob, best_id.float()], -1),
+                hist_extra[:, t])
+            if _poll(t, poll_every) and not bool(
+                    ((t + 1 < max_steps) & ~finished).any()):
+                break
 
     L = (lengths - 1).clamp(min=1).float()
     dec_conf = torch.where(lengths > 1, torch.exp(score / L),

@@ -685,8 +685,11 @@ class OCR:
         as grouped batched forwards, and each page is cropped and
         preprocessed as its map arrives (pages arrive in canvas-group order
         and are placed by their index). Returns one result list per page,
-        in input order."""
+        in input order. The call's stage times ("detect": inside the
+        detector, "preprocess": crops, "recognize": the pooled pass) are
+        left in ``self.last_timer``."""
         image_paths = list(image_paths)
+        timer = StageTimer()
         n_docs = len(image_paths)
         per_doc: List = [None] * n_docs     # (boxes, det_confs, kept)
         doc_pool: List = [None] * n_docs    # host: (batch, widths);
@@ -710,28 +713,41 @@ class OCR:
 
         if mode == "lines":
             det = self.detector
-            for di, tbs in det.iter_lines_objects_batch(image_paths):
+            pages = det.iter_lines_objects_batch(image_paths)
+            while True:
+                with timer.stage("detect"):
+                    page = next(pages, None)
+                if page is None:
+                    break
+                di, tbs = page
                 # This page's deskew state, for its crops.
                 (det.last_deskewed_image, det.last_deskew_boxes,
                  det.last_deskew_angle) = det.last_batch_state[di]
-                prep_page(di, [b.bbox for b in tbs],
-                          [b.confidence for b in tbs])
+                with timer.stage("preprocess"):
+                    prep_page(di, [b.bbox for b in tbs],
+                              [b.confidence for b in tbs])
         else:
             for di, image_path in enumerate(image_paths):
-                prep_page(di, *self._detect_boxes(image_path, mode))
+                with timer.stage("detect"):
+                    boxes, det_confs = self._detect_boxes(image_path, mode)
+                with timer.stage("preprocess"):
+                    prep_page(di, boxes, det_confs)
 
         entries = [e for e in doc_pool if e is not None]
-        if self.preprocess == "device":
-            recognized = self.engine.recognize_crops(
-                [c for e in entries for c in e[0]], self.decode_method,
-                enhance=self.enhance,
-                sharpen=np.asarray([s for e in entries for s in e[1]], bool))
-        elif entries:
-            recognized = self.engine.recognize_batch(
-                np.concatenate([e[0] for e in entries]), self.decode_method,
-                widths=np.concatenate([e[1] for e in entries]))
-        else:
-            recognized = []
+        with timer.stage("recognize"):
+            if self.preprocess == "device":
+                recognized = self.engine.recognize_crops(
+                    [c for e in entries for c in e[0]], self.decode_method,
+                    enhance=self.enhance,
+                    sharpen=np.asarray([s for e in entries for s in e[1]],
+                                       bool))
+            elif entries:
+                recognized = self.engine.recognize_batch(
+                    np.concatenate([e[0] for e in entries]),
+                    self.decode_method,
+                    widths=np.concatenate([e[1] for e in entries]))
+            else:
+                recognized = []
 
         all_results: List[List[Dict]] = []
         row = 0
@@ -745,6 +761,7 @@ class OCR:
             all_results.append(results)
         # The upright boxes of each page for extract_text_batch's grouping.
         self._last_batch_twins = doc_twins
+        self.last_timer = timer
         return all_results
 
     def extract_text_batch(self, image_paths, mode: str = "lines",

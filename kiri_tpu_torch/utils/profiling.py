@@ -3,10 +3,28 @@
 * ``trace(logdir)``: a ``torch.profiler`` trace of the host and the card,
   written into ``logdir`` as a Chrome trace (``chrome://tracing``,
   Perfetto);
-* ``annotate(name)``: a named range on the host timeline of such a trace
-  (``torch.profiler.record_function``);
-* ``StageTimer``: wall-clock seconds per named pipeline stage, each stage
-  also an ``annotate`` range.
+* ``annotate(name)``: the program's span, a named range on the host
+  timeline of such a trace (``torch.profiler.record_function``) while a
+  profiler records, and nothing at all otherwise (one flag check);
+* ``count(name, n)``: a counter of the same traced stretch, kept only
+  while a profiler records; ``counters()`` reads the table and
+  ``reset_counters()`` clears it;
+* ``StageTimer``: wall-clock seconds per named pipeline stage, kept
+  always, each stage also an ``annotate`` span.
+
+"Tracing on" means exactly "a ``torch.profiler`` session is recording",
+as under ``trace(...)``: spans and counters then cover the same stretch as
+the device trace, on its clock. An operator reads the counters after the
+traced block::
+
+    reset_counters()
+    with trace("kiri_trace"):
+        engine.recognize_batch(imgs, "decoder", widths)
+    counters()          # e.g. {"host_waits": 11}
+
+The program's spans are dotted layer names (``engine.encode``,
+``decode.round``, ``detect.wait``, ...); the one counter is
+``host_waits``, each time the host waits for the card's results.
 """
 from __future__ import annotations
 
@@ -15,9 +33,13 @@ import os
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import ContextManager, Dict, Iterator
 
 import torch
+from torch.autograd import _profiler_enabled
+
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -37,11 +59,27 @@ def trace(logdir: str = "kiri_trace") -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range on the host timeline of a ``trace``."""
-    with torch.profiler.record_function(name):
-        yield
+def annotate(name: str) -> ContextManager:
+    """A named range on the host timeline of a ``trace``; with no profiler
+    recording, the block runs with nothing around it."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if _profiler_enabled():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counter table."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 class StageTimer:
