@@ -9,8 +9,9 @@ scores and the attention-weighted sum accumulate in float32, GELU is exact.
 Attention is written out as matmul -> softmax -> matmul, as the JAX package
 writes it. The decoder has a whole-sequence layer (``decoder_layer``) and a
 one-position layer over a K/V cache (``decoder_step_layer``), where the step
-counter is a host integer: the cache is written in place at it and read up
-to it.
+counter is a device scalar: the cache is written in place at it and read
+whole, the positions past it masked, so a step's shapes do not depend on the
+counter (the step loop can be replayed as a CUDA graph).
 
 Training passes a dropout rate and a ``torch.Generator`` to the whole-sequence
 functions: dropout sits where the JAX package puts it (the attention weights,
@@ -266,23 +267,31 @@ def init_self_cache(n_layers: int, batch: int, max_len: int, n_heads: int,
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            dtype: torch.dtype) -> torch.Tensor:
+            dtype: torch.dtype, mask: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd)) v over float32 [.., Tq, hd] x [.., Tk, hd],
-    with the weights and the result rounded to ``dtype`` as ``mha`` does."""
+    with the weights and the result rounded to ``dtype`` as ``mha`` does;
+    ``mask`` [Tk] True = key left out (its weight is exactly 0)."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(mask, float("-inf"))
     attn = torch.softmax(scores, dim=-1).to(dtype)
     return torch.matmul(attn.float(), v).to(dtype)
 
 
 def decoder_step_layer(layer, x: torch.Tensor, layer_idx: int,
-                       cache: torch.Tensor, pos: int, cross_k: torch.Tensor,
-                       cross_v: torch.Tensor, n_heads: int) -> torch.Tensor:
+                       cache: torch.Tensor, pos: torch.Tensor,
+                       cross_k: torch.Tensor, cross_v: torch.Tensor,
+                       n_heads: int) -> torch.Tensor:
     """One decoder layer for one new position, with the K/V cache.
 
-    x [B, 1, D] activations of the current token; ``pos`` is the host's step
-    counter: this step's K/V are written in place at ``cache[layer_idx, :,
-    pos]`` and attention runs over the slice ``[:pos + 1]``, so no mask is
-    needed and no slot that was never written is read. ``cross_k``/``cross_v``
+    x [B, 1, D] activations of the current token; ``pos`` is the step
+    counter, an int32 scalar on x's device: this step's K/V are written in
+    place at ``cache[layer_idx, :, pos]`` and attention runs over the whole
+    cache with the keys past ``pos`` masked (as the JAX package does), so
+    the launches and their shapes are the same at every step and no host
+    value is read. A masked key's weight is exactly 0, so the slots never
+    written add nothing. ``cross_k``/``cross_v``
     are ``precompute_cross_kv``'s [N, H, T, hd] with B = N * K: the K beams
     of a line are consecutive rows and share the line's memory K/V, which is
     read once per line and not once per beam. Under tensor parallelism the
@@ -297,11 +306,13 @@ def decoder_step_layer(layer, x: torch.Tensor, layer_idx: int,
     h = layer_norm(x, layer.norm1.weight, layer.norm1.bias)
     qkv = dense(h, a.in_proj_weight, a.in_proj_bias)       # fused, [B, 1, 3D]
     # k and v lie side by side in qkv, in the cache's (2, H, hd) order.
-    cache[layer_idx, :, pos] = qkv[:, 0, dl:].view(b, 2, dl // hd, hd)
-    kv = cache[layer_idx, :, :pos + 1].float()             # [B, t, 2, H, hd]
+    cache[layer_idx].index_copy_(1, pos.view(1).long(),
+                                 qkv[:, :, dl:].view(b, 1, 2, dl // hd, hd))
+    kv = cache[layer_idx].float()                       # [B, L_buf, 2, H, hd]
+    later = torch.arange(kv.shape[1], device=x.device) > pos
     q = qkv[:, 0, :dl].view(b, dl // hd, hd)
     sa = _attend(q.float().unsqueeze(2), kv[:, :, 0].transpose(1, 2),
-                 kv[:, :, 1].transpose(1, 2), x.dtype)     # [B, H, 1, hd]
+                 kv[:, :, 1].transpose(1, 2), x.dtype, later)  # [B, H, 1, hd]
     x = x + _row_parallel(sa.reshape(b, 1, dl), a.out_proj.weight,
                           a.out_proj.bias, tp_a)
 

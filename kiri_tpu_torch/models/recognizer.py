@@ -40,6 +40,7 @@ from torch import nn
 
 from ..kernels.stem import (BN_EPS, STRIDES, FoldedStem, StemWeightCache,
                             stem_fused)
+from ..ops.decode import StepGraphs
 from ..ops.preprocess import normalize_u8
 from ..weight_cache import WeightCache
 from . import layers as L
@@ -186,7 +187,8 @@ class DecoderWeights(SimpleNamespace):
     the output heads as one linear ``head_w`` [V or 2V, D], ``head_b``: the
     decoder head's rows first, then the LM head's where the model has one
     and ``cfg.USE_LM`` is set (under a mesh, this rank's rows of each, and
-    ``tp`` the mesh); ``vocab`` is V."""
+    ``tp`` the mesh); ``vocab`` is V; ``step_graphs`` the step loops' CUDA
+    graphs over these tensors (``ops.decode.StepGraphs``)."""
 
 
 @functools.lru_cache(maxsize=16)
@@ -354,7 +356,7 @@ class Recognizer(nn.Module):
                 head_b=torch.cat([h.bias.detach() for h in heads]).to(dtype),
                 vocab=self.dec_head.weight.shape[0] * (
                     1 if tp is None else tp.model_size),
-                has_lm=has_lm, tp=tp)
+                has_lm=has_lm, tp=tp, step_graphs=StepGraphs())
         return self._decoder_weights.lookup(tensors, dtype, build)
 
     def _heads(self, w: DecoderWeights, x: torch.Tensor
@@ -407,18 +409,19 @@ class Recognizer(nn.Module):
         return L.init_self_cache(len(self.dec.layers), batch, max_len, heads,
                                  hd, dtype, self.dec_emb.weight.device)
 
-    def decoder_step(self, tok_ids: torch.Tensor, pos: int,
+    def decoder_step(self, tok_ids: torch.Tensor, pos: torch.Tensor,
                      cache: torch.Tensor, cross_kvs
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """One autoregressive step: tok_ids [B] at position ``pos`` (the
-        host's step counter) -> float32 (dec_logits [B, V], lm_logits [B, V]
-        or None). ``cache`` (``init_decode_cache``) is written in place at
-        ``pos``; ``cross_kvs`` is ``decode_prepare``'s, of B rows or of B / K
-        rows shared by the K consecutive beams of each line."""
+        """One autoregressive step: tok_ids [B] at position ``pos`` (the step
+        counter, an int32 scalar on the cache's device) -> float32
+        (dec_logits [B, V], lm_logits [B, V] or None). ``cache``
+        (``init_decode_cache``) is written in place at ``pos``;
+        ``cross_kvs`` is ``decode_prepare``'s, of B rows or of B / K rows
+        shared by the K consecutive beams of each line."""
         w = self.decoder_weights(cache.dtype)
         x = w.emb[tok_ids.long()][:, None]
         if w.pe is not None:
-            x = x + w.pe[pos]
+            x = x + w.pe.index_select(0, pos.view(1).long())
         for i, layer in enumerate(w.layers):
             ck, cv = cross_kvs[i]
             x = L.decoder_step_layer(layer, x, i, cache, pos, ck, cv,

@@ -9,14 +9,21 @@ dense batches, the port of ``kiri_tpu/ops/decode.py``.
   the final ranking adds the CTC forward-algorithm alignment score.
 
 Where the JAX package has ``lax.while_loop``, here the loop is Python's and
-the step counter a host integer. A loop's end condition lives on the device,
-so ``beam_search`` and ``greedy_decode`` run to a bound the host knows and
-look at the device's condition only every few steps: lines that are finished
-or past their own budget are frozen bit for bit, so steps past the end
-change nothing (``poll_every``). Under a profiler each step loop is one
-``decode.step_loop`` span and each ``spec_decode`` round a ``decode.round``
-span; every look at the device counts in ``host_waits``
-(``utils/profiling.py``).
+the step counter an int32 scalar on the device that each step advances, as
+in the JAX package: a step writes the K/V cache at the counter, attends over
+the whole cache with the later positions masked and indexes its buffers
+with it, so every step launches the same kernels on the same shapes. A
+loop's end condition lives on the device, so ``beam_search`` and
+``greedy_decode`` run to a bound the host knows, in chunks of ``poll_every``
+steps, and look at the device's condition after each chunk: lines that are
+finished or past their own budget are frozen bit for bit, so steps past the
+end change nothing. On a CUDA device, unless the decoder is tensor-parallel
+(its steps hold collectives), a chunk is a CUDA graph captured on a loop's
+first use and replayed after (``StepGraphs``); elsewhere the same steps run
+eagerly. Under a profiler each step loop is one ``decode.step_loop`` span
+and each ``spec_decode`` round a ``decode.round`` span; every look at the
+device counts in ``host_waits``, the steps in ``decode.graph_steps`` or
+``decode.eager_steps`` (``utils/profiling.py``).
 
 The same steps run a window at a time for streaming
 (``beam_stream_window``, ``greedy_stream_window``: the state stays on the
@@ -30,16 +37,23 @@ of ``mem_proj``; ``model`` is a ``models.recognizer.Recognizer``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from collections import OrderedDict
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from torch.autograd import _profiler_enabled
 
 from ..utils.profiling import annotate, count
 from .ctc import NEG_INF, ctc_alignment_scores
 
 #: Steps between two looks at the device's end-of-loop condition.
 POLL_EVERY = 4
+#: Step-loop graphs kept per set of decoder weights, and the most device
+#: memory their buffers may hold together (``StepGraphs``).
+MAX_STEP_GRAPHS = 64
+MAX_STEP_GRAPH_BYTES = 4 << 30
 
 
 class DecodeOut(NamedTuple):
@@ -81,10 +95,10 @@ def _repeat_terms(cfg, n, s):
             (s[2], -cfg.REPEAT_TRIGRAM_PENALTY * tri))
 
 
-def _eos_bias(cfg, pos, target_len: torch.Tensor) -> torch.Tensor:
-    """The EOS bias at step ``pos`` (host integer or tensor that broadcasts
-    against ``target_len``)."""
-    pos = torch.as_tensor(pos, device=target_len.device)
+def _eos_bias(cfg, pos: torch.Tensor, target_len: torch.Tensor
+              ) -> torch.Tensor:
+    """The EOS bias at step ``pos`` (a tensor that broadcasts against
+    ``target_len``)."""
     min_len = (target_len.float() * 0.5).to(torch.int32).clamp(min=1).clamp(
         max=cfg.EOS_BIAS_UNTIL_LEN)
     zero = torch.zeros((), device=target_len.device)
@@ -96,28 +110,31 @@ def _eos_bias(cfg, pos, target_len: torch.Tensor) -> torch.Tensor:
     return torch.where(target_len > 0, with_tl, without)
 
 
-def apply_penalties(logp: torch.Tensor, tokens: torch.Tensor, t: int, cfg,
+def apply_penalties(logp: torch.Tensor, tokens: torch.Tensor, t, cfg,
                     target_len: torch.Tensor, eos_id: int, unk_dec_id: int
                     ) -> torch.Tensor:
     """The penalty stack on the next-token log-probs of step ``t``.
 
     logp [R, V] fused log-probs, tokens [R, L] the prefixes (tokens[:, t] is
-    the newest), ``t`` the host's step counter (len(seq) = t + 1),
-    target_len [R] the CTC length estimate (0 = none). Returns a new tensor.
+    the newest), ``t`` the step counter (len(seq) = t + 1): the step loops'
+    int32 scalar on the device, or a host integer, which gives the same
+    bits. target_len [R] the CTC length estimate (0 = none). Returns a new
+    tensor.
 
     Two terms may name the same token (s1 == s2 is legal): each term is its
     own ``scatter_add_`` of one element per row, in the JAX package's order,
-    so both land and no two adds of a launch meet in one element.
+    so both land and no two adds of a launch meet in one element. Below
+    len(seq) = 4 every repeat condition is false and its terms add -0,
+    which leaves each value as it was.
     """
     logp = logp.clone()
-    n = t + 1
+    t = torch.as_tensor(t, device=logp.device)
     if cfg.EOS_LOGP_BIAS != 0.0 or cfg.EOS_LOGP_BOOST != 0.0:
         logp[:, eos_id] += _eos_bias(cfg, t, target_len)
-    if n >= 4:      # below that every repeat condition is false: adds of -0
-        tokens = tokens.long()
-        s = [tokens[:, max(t - back, 0)] for back in range(6)]
-        for tok, amount in _repeat_terms(cfg, n, s):
-            logp.scatter_add_(1, tok[:, None], amount[:, None])
+    back = (t - torch.arange(6, device=logp.device)).clamp(min=0)
+    s = tokens.long().index_select(1, back).unbind(1)
+    for tok, amount in _repeat_terms(cfg, t + 1, s):
+        logp.scatter_add_(1, tok[:, None], amount[:, None])
     logp[:, unk_dec_id] -= cfg.UNK_LOGP_PENALTY
     return logp
 
@@ -231,25 +248,183 @@ def _step_bound(max_steps: torch.Tensor, step_bound: Optional[int]) -> int:
     return int(max_steps.max()) if step_bound is None else int(step_bound)
 
 
-def _poll(t: int, poll_every: int) -> bool:
-    """Whether a step loop asks the device after step ``t`` if any line is
-    still active: a host wait, counted."""
-    if not (poll_every and (t + 1) % poll_every == 0):
-        return False
-    count("host_waits")
-    return True
+def _nbytes(tensors: Sequence[torch.Tensor]) -> int:
+    """Bytes of the distinct storages under ``tensors``."""
+    return sum({x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                for x in tensors}.values())
+
+
+class StepGraphs:
+    """The step loops' CUDA graphs for one set of decoder weights
+    (``DecoderWeights.step_graphs``, so that a graph never outlives the
+    weights it reads): one graph per loop key (the device, the shapes and
+    types of the loop's state, the kind of step, the chunk, the
+    configuration and the special ids). A graph keeps its first loop's
+    state and inputs as its buffers (the K/V cache, the cross K/V, any
+    history): ``nbytes`` counts them over every graph kept, which stays
+    under ``MAX_STEP_GRAPH_BYTES`` and ``MAX_STEP_GRAPHS`` graphs, the
+    least recently used dropped first; a loop whose own buffers pass a
+    quarter of the bytes runs eagerly (``holds``). The graphs share one
+    memory pool, which holds only the scratch of a chunk, and are captured
+    on one side stream of their device. ``captures`` counts the graphs
+    captured. A copy starts with no graphs."""
+
+    def __init__(self) -> None:
+        self.graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+        self.captures = 0
+        self.nbytes = 0
+        self.pool = self.stream = None
+
+    def __reduce__(self):
+        # A copy of the weights (``copy.deepcopy`` of the model, pickling)
+        # holds other tensors, which these graphs do not read: it starts
+        # with none.
+        return (StepGraphs, ())
+
+    def get(self, key: tuple) -> Optional["_StepGraph"]:
+        g = self.graphs.get(key)
+        if g is not None:
+            self.graphs.move_to_end(key)
+        return g
+
+    @staticmethod
+    def holds(tensors: Sequence[torch.Tensor]) -> bool:
+        """Whether a loop over ``tensors`` may be captured."""
+        return _nbytes(tensors) <= MAX_STEP_GRAPH_BYTES // 4
+
+    def capture(self, key: tuple, run, state: Sequence[torch.Tensor],
+                inputs: Sequence[torch.Tensor]) -> "_StepGraph":
+        """Capture ``run`` over ``state`` and ``inputs``, which become the
+        graph's buffers, and keep it under ``key``."""
+        with torch.cuda.device(state[0].device):
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream()
+            graph = _StepGraph(run, state, inputs, self.pool, self.stream)
+        self.graphs[key] = graph
+        self.captures += 1
+        self.nbytes += graph.nbytes
+        while (len(self.graphs) > MAX_STEP_GRAPHS
+               or self.nbytes > MAX_STEP_GRAPH_BYTES):
+            self.nbytes -= self.graphs.popitem(last=False)[1].nbytes
+        return graph
+
+
+class _StepGraph:
+    """One chunk of steps captured from its own state and input buffers:
+    ``replay`` advances ``state`` in place and sets ``alive``. Capture and
+    replay run with the buffers' device current, so the chunk's launches
+    go to that device's streams whichever device the caller has current."""
+
+    def __init__(self, run, state: Sequence[torch.Tensor],
+                 inputs: Sequence[torch.Tensor], pool, stream) -> None:
+        self.state = tuple(state)
+        self.inputs = tuple(inputs)
+        self.device = self.state[0].device
+        self.nbytes = _nbytes(self.state + self.inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            new, self.alive = run(self.state, self.inputs)
+            for buf, x in zip(self.state, new):
+                buf.copy_(x)
+
+    def load(self, state: Sequence[torch.Tensor],
+             inputs: Sequence[torch.Tensor]) -> None:
+        for buf, x in zip(self.state + self.inputs, (*state, *inputs)):
+            buf.copy_(x)
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+
+def _step_graphs(model, dtype: torch.dtype, device: torch.device
+                 ) -> Optional[StepGraphs]:
+    """The graphs a step loop of the decoder in ``dtype`` may replay: on a
+    CUDA device, for a model that is not tensor-parallel (no mesh with a
+    model axis past 1, ``parallel.shard_variables``: any of its attentions,
+    FFNs or heads may then hold a collective); None where its steps run
+    eagerly."""
+    mesh = getattr(model, "mesh", None)
+    if device.type != "cuda" or (mesh is not None and mesh.model_size > 1):
+        return None
+    return model.decoder_weights(dtype).step_graphs
+
+
+def _step_loop(model, dtype: torch.dtype, kind: tuple, step: Callable,
+               alive: Callable, state: Tuple[torch.Tensor, ...],
+               inputs: Tuple[torch.Tensor, ...], n_steps: int,
+               poll_every: int) -> Tuple[torch.Tensor, ...]:
+    """Run ``state = step(state, inputs)`` for the loop's ``n_steps`` in
+    chunks of ``poll_every`` (0: one chunk), the last chunk whole: the
+    caller's steps freeze every line from step ``n_steps`` on. After each
+    chunk that ends at or before ``n_steps`` the host looks at ``alive(state,
+    inputs)`` (a device bool, any line takes the next step; a host wait)
+    and stops when it is False.
+
+    Where ``_step_graphs`` allows, a chunk is a CUDA graph keyed by ``kind``,
+    the device and the shapes and types of ``state`` and ``inputs``: on a
+    key's first use the first chunk runs eagerly and the graph is captured
+    from its result, later chunks and loops replay it. A loop first met
+    while a profiler records, or too large for ``StepGraphs.holds``, stays
+    eager. Returns the final state, which may be the graph's own buffers:
+    the next loop of the same key overwrites them, so the caller copies
+    what it returns as it is."""
+    chunk = poll_every or max(n_steps, 1)
+
+    def run(state, inputs):
+        for _ in range(chunk):
+            state = step(state, inputs)
+        return state, alive(state, inputs)
+
+    graphs = _step_graphs(model, dtype, state[0].device)
+    key = graph = None
+    if graphs is not None:
+        key = kind + (chunk, state[0].device) + tuple(
+            (x.shape, x.dtype) for x in state + inputs)
+        graph = graphs.get(key)
+        if graph is not None:
+            graph.load(state, inputs)
+        elif _profiler_enabled() or not graphs.holds(state + inputs):
+            graphs = None
+    for start in range(0, n_steps, chunk):
+        if graph is not None:
+            graph.replay()
+            count("decode.graph_steps", chunk)
+            flag = graph.alive
+        else:
+            state, flag = run(state, inputs)
+            count("decode.eager_steps", chunk)
+            if graphs is not None:
+                graph = graphs.capture(key, run, state, inputs)
+        if not poll_every or start + chunk > n_steps:
+            break
+        count("host_waits")
+        if not bool(flag):
+            break
+    return graph.state if graph is not None else state
 
 
 # ==========================================================================
 # Beam search
 # ==========================================================================
-def _beam_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
+def _next_t(t: torch.Tensor, l_buf: int) -> torch.Tensor:
+    """The step counter after step ``t``. It stops at the buffers' last
+    slot: no line takes a step there (every budget is at most l_buf - 2),
+    so a loop's last chunk may run past its bound and write nothing out of
+    range."""
+    return (t + 1).clamp(max=l_buf - 1)
+
+
+def _beam_step(model, cross_kvs, row_target_len, max_steps, t, tokens,
                scores, lengths, finished, cache, steps_done, *, cfg,
                eos_id: int, unk_dec_id: int):
-    """One beam-search step for all N lines. Returns the updated (tokens,
-    scores, lengths, finished, cache, steps_done) and the lines that took
-    the step; lines past their step budget or with every beam finished are
-    frozen bit for bit.
+    """One beam-search step for all N lines at the step counter ``t`` (an
+    int32 scalar on the device). Returns the updated (t, tokens, scores,
+    lengths, finished, cache, steps_done) and the lines that took the step;
+    lines past their step budget or with every beam finished are frozen bit
+    for bit. ``row_target_len`` [N*K] is each row's CTC length estimate.
 
     The K/V cache rows follow their beams: after the step the cache is
     gathered by parent (``index_select`` over its row axis)."""
@@ -263,8 +438,7 @@ def _beam_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
                                                cache, cross_kvs)
     logp = _fused_logp(dec_logits, lm_logits, cfg)                # [N*K, V]
     logp = apply_penalties(logp, tokens.reshape(n * K, l_buf), t, cfg,
-                           target_len.repeat_interleave(K), eos_id,
-                           unk_dec_id)
+                           row_target_len, eos_id, unk_dec_id)
     logp = logp.view(n, K, -1)
     topv, topi = _top_k(logp, K)                                  # [N, K, K]
 
@@ -309,7 +483,8 @@ def _beam_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
     lengths = torch.where(la, new_lengths, lengths)
     finished = torch.where(la, new_finished, finished)
     steps_done = steps_done + line_active.to(torch.int32)
-    return tokens, scores, lengths, finished, cache, steps_done, line_active
+    return (_next_t(t, l_buf), tokens, scores, lengths, finished, cache,
+            steps_done, line_active)
 
 
 def _stream_best(cfg, tokens, scores, lengths, finished):
@@ -324,12 +499,15 @@ def _stream_best(cfg, tokens, scores, lengths, finished):
             finished.gather(1, best)[:, 0])
 
 
-def _record(hist, row, active, snapshot) -> None:
-    """Write a step's best-beam ``snapshot`` into row ``row`` of the history
-    buffers (tokens, len, score, finished) for the ``active`` lines."""
+def _record(hist, row: torch.Tensor, active, snapshot) -> None:
+    """Write a step's ``snapshot`` into row ``row`` (a device scalar; past
+    the last row, the last: no line is active there) of each history
+    buffer [N, rows, ...] for the ``active`` lines."""
     for buf, val in zip(hist, snapshot):
+        idx = row.clamp(max=buf.shape[1] - 1).view(1).long()
         keep = active.view(-1, *([1] * (val.dim() - 1)))
-        buf[:, row] = torch.where(keep, val, buf[:, row])
+        old = buf.index_select(1, idx)[:, 0]
+        buf.index_copy_(1, idx, torch.where(keep, val, old)[:, None])
 
 
 def _new_history(n: int, steps: int, l_buf: int, dev):
@@ -362,8 +540,10 @@ def beam_search(model, mem_proj: torch.Tensor,
     asks). The result does not depend on ``poll_every`` or on a larger
     ``step_bound``.
 
-    The K/V cache is written in place at the step's position and read up to
-    it; for K > 1 its rows are gathered by beam parent after each step.
+    The K/V cache is written in place at the step's position and read
+    whole, masked past it; for K > 1 its rows are gathered by beam parent
+    after each step. The steps run as ``_step_loop`` says: a CUDA graph of
+    ``poll_every`` steps where the device allows, else eagerly.
 
     ``record_history`` keeps each line's best beam after every step it took
     (``hist_*`` of the result), what one-shot beam streaming replays.
@@ -374,31 +554,47 @@ def beam_search(model, mem_proj: torch.Tensor,
     dev = mem_proj.device
     target_len = target_len.to(torch.int32)
     max_steps = max_decode_steps(cfg, target_len, t_mem).clamp(max=l_cap)
+    n_steps = min(_step_bound(max_steps, step_bound), l_cap)
+    # No line takes step n_steps or later: a last chunk that runs past the
+    # host's bound changes nothing.
+    max_steps = max_steps.clamp(max=n_steps)
 
     cross_kvs = model.decode_prepare(mem_proj)     # per line, shared by beams
-    cache = model.init_decode_cache(n * K, l_buf, mem_proj.dtype)
     tokens = torch.zeros((n, K, l_buf), dtype=torch.int32, device=dev)
     tokens[:, :, 0] = bos_id
     scores = torch.full((n, K), NEG_INF, device=dev)
     scores[:, 0] = 0.0
-    lengths = torch.ones((n, K), dtype=torch.int32, device=dev)
-    finished = torch.zeros((n, K), dtype=torch.bool, device=dev)
-    steps_done = torch.zeros((n,), dtype=torch.int32, device=dev)
-    hist = _new_history(n, l_cap, l_buf, dev) if record_history else None
+    # (t, tokens, scores, lengths, finished, cache, steps_done, *history)
+    state = (torch.zeros((), dtype=torch.int32, device=dev), tokens, scores,
+             torch.ones((n, K), dtype=torch.int32, device=dev),
+             torch.zeros((n, K), dtype=torch.bool, device=dev),
+             model.init_decode_cache(n * K, l_buf, mem_proj.dtype),
+             torch.zeros((n,), dtype=torch.int32, device=dev))
+    if record_history:
+        state += _new_history(n, l_cap, l_buf, dev)
+    inputs = (target_len.repeat_interleave(K), max_steps,
+              *(x for kv in cross_kvs for x in kv))
+
+    def step(state, inputs):
+        row_tl, max_steps, *kv = inputs
+        new = _beam_step(model, list(zip(kv[::2], kv[1::2])), row_tl,
+                         max_steps, *state[:7], cfg=cfg, eos_id=eos_id,
+                         unk_dec_id=unk_dec_id)
+        if record_history:
+            _record(state[7:], state[0], new[-1],
+                    _stream_best(cfg, *new[1:5]))
+        return new[:-1] + state[7:]
+
+    def alive(state, inputs):
+        return ((state[0] < inputs[1]) & ~state[4].all(dim=1)).any()
 
     with annotate("decode.step_loop"):
-        for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
-            (tokens, scores, lengths, finished, cache, steps_done,
-             active) = _beam_step(
-                model, cross_kvs, target_len, max_steps, t, tokens, scores,
-                lengths, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
-                unk_dec_id=unk_dec_id)
-            if hist is not None:
-                _record(hist, t, active,
-                        _stream_best(cfg, tokens, scores, lengths, finished))
-            if _poll(t, poll_every) and not bool(
-                    ((t + 1 < max_steps) & ~finished.all(dim=1)).any()):
-                break
+        state = _step_loop(
+            model, mem_proj.dtype, ("beam", cfg, eos_id, unk_dec_id), step,
+            alive, state, inputs, n_steps, poll_every)
+    tokens, scores, lengths = state[1:4]
+    steps_done = state[6].clone()
+    hist = [h.clone() for h in state[7:]] or None
 
     # ---- final scoring with CTC fusion ----
     L = (lengths - 1).clamp(min=1).float()
@@ -615,12 +811,15 @@ def spec_decode(model, mem_proj: torch.Tensor,
 # ==========================================================================
 # Greedy decode (the choice is the argmax of the raw decoder logits)
 # ==========================================================================
-def _greedy_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
+def _greedy_step(model, cross_kvs, target_len, max_steps, t, tokens,
                  lengths, score, finished, cache, steps_done, *, cfg,
                  eos_id: int, unk_dec_id: int):
-    """One greedy step for all N lines. The token is the argmax of the raw
-    decoder logits; penalties and LM fusion change only the recorded logp.
-    Returns the updated state and (active, best_prob, best_id, best_logp)."""
+    """One greedy step for all N lines at the step counter ``t`` (an int32
+    scalar on the device). The token is the argmax of the raw decoder
+    logits; penalties and LM fusion change only the recorded logp. Returns
+    the updated (t, tokens, lengths, score, finished, steps_done) and
+    (active, best_prob, best_id, best_logp); the cache is written in
+    place."""
     n, l_buf = tokens.shape
     active = (t < max_steps) & ~finished
     cur_tok = tokens.gather(1, (lengths - 1).clamp(min=0).long()[:, None])[:, 0]
@@ -639,8 +838,8 @@ def _greedy_step(model, cross_kvs, target_len, max_steps, t: int, tokens,
     new_finished = torch.where(active, best_id == eos_id, finished)
     new_score = torch.where(active, score + best_logp, score)
     steps_done = steps_done + active.to(torch.int32)
-    return (new_tokens, new_lengths, new_score, new_finished, steps_done,
-            active, best_prob, best_id, best_logp)
+    return (_next_t(t, l_buf), new_tokens, new_lengths, new_score,
+            new_finished, steps_done, active, best_prob, best_id, best_logp)
 
 
 def greedy_decode(model, mem_proj: torch.Tensor, target_len: torch.Tensor,
@@ -655,31 +854,44 @@ def greedy_decode(model, mem_proj: torch.Tensor, target_len: torch.Tensor,
     dev = mem_proj.device
     target_len = target_len.to(torch.int32)
     max_steps = max_decode_steps(cfg, target_len, t_mem).clamp(max=l_cap)
+    n_steps = min(_step_bound(max_steps, step_bound), l_cap)
+    # No line takes step n_steps or later: a last chunk that runs past the
+    # host's bound changes nothing.
+    max_steps = max_steps.clamp(max=n_steps)
     cross_kvs = model.decode_prepare(mem_proj)
-    cache = model.init_decode_cache(n, l_buf, mem_proj.dtype)
 
     tokens = torch.zeros((n, l_buf), dtype=torch.int32, device=dev)
     tokens[:, 0] = bos_id
-    lengths = torch.ones((n,), dtype=torch.int32, device=dev)
-    finished = torch.zeros((n,), dtype=torch.bool, device=dev)
-    score = torch.zeros((n,), device=dev)
-    steps_done = torch.zeros((n,), dtype=torch.int32, device=dev)
-    hist_extra = torch.zeros((n, l_cap, 2), device=dev)
+    # (t, tokens, lengths, score, finished, steps_done, cache, hist_extra)
+    state = (torch.zeros((), dtype=torch.int32, device=dev), tokens,
+             torch.ones((n,), dtype=torch.int32, device=dev),
+             torch.zeros((n,), device=dev),
+             torch.zeros((n,), dtype=torch.bool, device=dev),
+             torch.zeros((n,), dtype=torch.int32, device=dev),
+             model.init_decode_cache(n, l_buf, mem_proj.dtype),
+             torch.zeros((n, l_cap, 2), device=dev))
+    inputs = (target_len, max_steps, *(x for kv in cross_kvs for x in kv))
+
+    def step(state, inputs):
+        tl, max_steps, *kv = inputs
+        cache, hist_extra = state[6:]
+        (*new, active, best_prob, best_id, _) = _greedy_step(
+            model, list(zip(kv[::2], kv[1::2])), tl, max_steps, *state[:5],
+            cache, state[5], cfg=cfg, eos_id=eos_id, unk_dec_id=unk_dec_id)
+        _record((hist_extra,), state[0], active,
+                (torch.stack([best_prob, best_id.float()], -1),))
+        return (*new, cache, hist_extra)
+
+    def alive(state, inputs):
+        return ((state[0] < inputs[1]) & ~state[4]).any()
 
     with annotate("decode.step_loop"):
-        for t in range(min(_step_bound(max_steps, step_bound), l_cap)):
-            (tokens, lengths, score, finished, steps_done, active, best_prob,
-             best_id, _) = _greedy_step(
-                model, cross_kvs, target_len, max_steps, t, tokens, lengths,
-                score, finished, cache, steps_done, cfg=cfg, eos_id=eos_id,
-                unk_dec_id=unk_dec_id)
-            hist_extra[:, t] = torch.where(
-                active[:, None],
-                torch.stack([best_prob, best_id.float()], -1),
-                hist_extra[:, t])
-            if _poll(t, poll_every) and not bool(
-                    ((t + 1 < max_steps) & ~finished).any()):
-                break
+        state = _step_loop(
+            model, mem_proj.dtype, ("greedy", cfg, eos_id, unk_dec_id), step,
+            alive, state, inputs, n_steps, poll_every)
+    tokens, lengths, score, finished, steps_done = (x.clone()
+                                                    for x in state[1:6])
+    hist_extra = state[7].clone()
 
     L = (lengths - 1).clamp(min=1).float()
     dec_conf = torch.where(lengths > 1, torch.exp(score / L),
@@ -856,18 +1068,23 @@ def beam_stream_window(model, state: BeamStreamState, cross_kvs,
     which change nothing.
     """
     target_len = target_len.to(torch.int32)
-    n, _, l_buf = state.tokens.shape
-    hist = _new_history(n, w, l_buf, state.tokens.device)
+    n, k_beam, l_buf = state.tokens.shape
+    dev = state.tokens.device
+    hist = _new_history(n, w, l_buf, dev)
+    row_tl = target_len.repeat_interleave(k_beam)
     tokens, scores, lengths, finished, cache, steps_done = state[2:8]
+    t_dev = torch.full((), state.t, dtype=torch.int32, device=dev)
     t_next = state.t
     steps = _window_steps(state, w)
     for t in steps:
-        (tokens, scores, lengths, finished, cache, steps_done,
+        row = t_dev - state.t
+        (t_dev, tokens, scores, lengths, finished, cache, steps_done,
          active) = _beam_step(
-            model, cross_kvs, target_len, state.max_steps, t, tokens,
+            model, cross_kvs, row_tl, state.max_steps, t_dev, tokens,
             scores, lengths, finished, cache, steps_done, cfg=cfg,
             eos_id=eos_id, unk_dec_id=unk_dec_id)
-        _record(hist, t - state.t, active,
+        count("decode.eager_steps")
+        _record(hist, row, active,
                 _stream_best(cfg, tokens, scores, lengths, finished))
         t_next = t + 1
         if _stop_early(t_next, steps, poll_every, state.max_steps,
@@ -911,19 +1128,22 @@ def greedy_stream_window(model, state: GreedyStreamState, cross_kvs,
     window; the rest as ``beam_stream_window``."""
     target_len = target_len.to(torch.int32)
     n = state.tokens.shape[0]
-    extra = torch.zeros((n, w, 2), device=state.tokens.device)
+    dev = state.tokens.device
+    extra = torch.zeros((n, w, 2), device=dev)
     tokens, lengths, score, finished, cache, steps_done = state[2:8]
+    t_dev = torch.full((), state.t, dtype=torch.int32, device=dev)
     t_next = state.t
     steps = _window_steps(state, w)
     for t in steps:
-        (tokens, lengths, score, finished, steps_done, active, best_prob,
-         best_id, _) = _greedy_step(
-            model, cross_kvs, target_len, state.max_steps, t, tokens,
+        row = t_dev - state.t
+        (t_dev, tokens, lengths, score, finished, steps_done, active,
+         best_prob, best_id, _) = _greedy_step(
+            model, cross_kvs, target_len, state.max_steps, t_dev, tokens,
             lengths, score, finished, cache, steps_done, cfg=cfg,
             eos_id=eos_id, unk_dec_id=unk_dec_id)
-        extra[:, t - state.t] = torch.where(
-            active[:, None], torch.stack([best_prob, best_id.float()], -1),
-            extra[:, t - state.t])
+        count("decode.eager_steps")
+        _record((extra,), row, active,
+                (torch.stack([best_prob, best_id.float()], -1),))
         t_next = t + 1
         if _stop_early(t_next, steps, poll_every, state.max_steps, finished):
             break

@@ -23,8 +23,10 @@ traced block::
     counters()          # e.g. {"host_waits": 11}
 
 The program's spans are dotted layer names (``engine.encode``,
-``decode.round``, ``detect.wait``, ...); the one counter is
-``host_waits``, each time the host waits for the card's results.
+``decode.round``, ``detect.wait``, ...); the counters are ``host_waits``,
+each time the host waits for the card's results, and the decoder's step
+loops' steps, ``decode.graph_steps`` replayed in a CUDA graph and
+``decode.eager_steps`` launched one by one.
 """
 from __future__ import annotations
 

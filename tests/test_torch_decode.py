@@ -88,27 +88,40 @@ PENALTY_ROWS = {
 }
 
 
-def _penalty_inputs(seed):
+def _penalty_inputs(seed, width=7):
+    """The rows of PENALTY_ROWS, continued from their start to ``width``."""
     rng = np.random.default_rng(seed)
     tokens = np.asarray(list(PENALTY_ROWS.values()), np.int32)
+    tokens = np.concatenate([tokens, tokens[:, 1:width - 6]], axis=1)
     logp = rng.normal(-3, 1, (len(tokens), tokens.shape[1], V)).astype(
         np.float32)
     tl = np.asarray([0, 3, 9, 4, 0, 2, 6], np.int32)
     return logp, tokens, tl
 
 
-@pytest.mark.parametrize("eos_bias", [False, True])
-def test_apply_penalties_match_jax_and_each_other(eos_bias):
+@pytest.mark.parametrize("eos_bias,counter", [
+    pytest.param(False, "host", id="False"),
+    pytest.param(True, "host", id="True"),
+    pytest.param(False, "device", id="False-device"),
+    pytest.param(True, "device", id="True-device")])
+def test_apply_penalties_match_jax_and_each_other(eos_bias, counter):
+    """The step's stack at each t, the sequence's, and the JAX package's
+    agree bit for bit; with the step loops' counter (an int32 scalar
+    tensor) each t = 0..9 gives the host integer's bits."""
     cfg = (CFG_PEN.replace(EOS_LOGP_BIAS=1.5, EOS_LOGP_BOOST=2.0,
                            EOS_BIAS_UNTIL_LEN=3) if eos_bias else CFG_PEN)
-    logp, tokens, tl = _penalty_inputs(0)
+    logp, tokens, tl = _penalty_inputs(0, 10 if counter == "device" else 7)
     seq = D.apply_penalties_seq(_t(logp), _t(tokens), cfg, _t(tl), 2, 3)
     want_seq = np.asarray(JD.apply_penalties_seq(
         jnp.asarray(logp), jnp.asarray(tokens), cfg, jnp.asarray(tl), 2, 3))
     np.testing.assert_array_equal(seq.numpy(), want_seq)
     for t in range(tokens.shape[1]):
-        step = D.apply_penalties(_t(logp[:, t]), _t(tokens), t, cfg, _t(tl),
+        at = torch.tensor(t, dtype=torch.int32) if counter == "device" else t
+        step = D.apply_penalties(_t(logp[:, t]), _t(tokens), at, cfg, _t(tl),
                                  2, 3)
+        if counter == "device":
+            assert torch.equal(step, D.apply_penalties(
+                _t(logp[:, t]), _t(tokens), t, cfg, _t(tl), 2, 3))
         want = np.asarray(JD.apply_penalties(
             jnp.asarray(logp[:, t]), jnp.asarray(tokens), t, cfg,
             jnp.asarray(tl), 2, 3))
@@ -236,19 +249,29 @@ def test_beam_search_matches_jax(request, which, k_beam, seed):
                             k_beam=k_beam, **kw), want)
 
 
-@pytest.mark.parametrize("k_beam", [1, 3])
-def test_beam_result_does_not_depend_on_polling(small_eos, k_beam):
+@pytest.mark.parametrize("k_beam,cut", [
+    pytest.param(1, None, id="1"), pytest.param(3, None, id="3"),
+    pytest.param(1, 5, id="1-cut"), pytest.param(3, 5, id="3-cut")])
+def test_beam_result_does_not_depend_on_polling(small_eos, k_beam, cut):
     """Finished lines are frozen, so neither how often the host looks at
-    ``finished`` nor a larger step bound changes a bit of the result."""
+    ``finished`` nor a larger step bound changes a bit of the result. With
+    a step bound ``cut`` that stops lines still running, chunks of 2, 4 and
+    7 steps run past it (the last chunk partial) and give what one chunk
+    of ``cut`` steps gives."""
     variables, jcfg, jtok, model, cfg, _ = small_eos
     memp, ctc, ids, conf, tl, kw = _encoded(variables, jcfg, jtok, 2)
+    polls = (((0, None), (1, None), (4, None), (7, kw["l_cap"]),
+              (0, kw["l_cap"] + 50)) if cut is None else
+             ((0, cut), (1, cut), (2, cut), (4, cut), (7, cut)))
     with torch.inference_mode():
         runs = [D.beam_search(model, _t(memp), _t(ctc), _t(tl), _t(conf),
                               cfg=cfg, k_beam=k_beam, poll_every=p,
                               step_bound=b, **kw)
-                for p, b in ((0, None), (1, None), (4, None), (7, kw["l_cap"]),
-                             (0, kw["l_cap"] + 50))]
+                for p, b in polls]
     for other in runs[1:]:
         for a, b in zip(runs[0][:6], other[:6]):
             assert torch.equal(a, b)
-    assert int(runs[0].hist_steps.max()) < kw["l_cap"]    # ended early
+    if cut is None:
+        assert int(runs[0].hist_steps.max()) < kw["l_cap"]  # ended early
+    else:
+        assert int(runs[0].hist_steps.max()) == cut         # cut short

@@ -131,7 +131,9 @@ def test_decoder_steps_reproduce_the_whole_pass(small, inputs, beams):
         cache = model.init_decode_cache(n * beams, lt, torch.float32)
         assert cache.shape == (2, n * beams, lt, 2, cfg.DEC_HEADS, 16)
         for pos in range(lt):
-            dec, lm = model.decoder_step(_t(rep[:, pos]), pos, cache, cross)
+            dec, lm = model.decoder_step(
+                _t(rep[:, pos]), torch.tensor(pos, dtype=torch.int32), cache,
+                cross)
             jdec, jlm, jcache = R.decoder_step(
                 variables, jnp.asarray(rep[:, pos]), pos, jcache, jcross,
                 jcfg, beams=beams)
@@ -209,7 +211,8 @@ def test_bf16_decoder_stays_near_float32(small, inputs):
                                                   _t(tokens))
         cross = model.decode_prepare(_t(memp).bfloat16())
         cache = model.init_decode_cache(3, 12, torch.bfloat16)
-        step, _ = model.decoder_step(_t(tokens[:, 0]), 0, cache, cross)
+        step, _ = model.decoder_step(
+            _t(tokens[:, 0]), torch.zeros((), dtype=torch.int32), cache, cross)
     assert dec16.dtype == lm16.dtype == step.dtype == torch.float32
     assert cache.dtype == torch.bfloat16 and cross[0][0].dtype == torch.float32
     assert float((dec16 - dec32).abs().max()) < 0.15

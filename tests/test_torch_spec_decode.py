@@ -107,3 +107,24 @@ def test_greedy_decode_matches_jax(request, which):
                                 poll_every=0, step_bound=kw["l_cap"], **kw)
     for a, b in zip(got[:7], again[:7]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cut", [None, 5])
+def test_greedy_result_does_not_depend_on_polling(small_eos, cut):
+    """As ``test_beam_result_does_not_depend_on_polling`` for the greedy
+    loop: chunks of 1, 2, 4 and 7 steps, the last one partial, give the
+    bits of one chunk, the history too; ``cut`` stops lines still
+    running."""
+    variables, jcfg, jtok, model, cfg, _ = small_eos
+    memp, ctc, ids, conf, tl, kw = _encoded(variables, jcfg, jtok, 2)
+    kw.pop("dec_offset")
+    bounds = (None, None, kw["l_cap"], None, kw["l_cap"] + 50)
+    with torch.inference_mode():
+        runs = [D.greedy_decode(model, _t(memp), _t(tl), cfg=cfg,
+                                poll_every=p, step_bound=cut or b, **kw)
+                for p, b in zip((0, 1, 2, 4, 7), bounds)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0][:7], other[:7]):
+            assert torch.equal(a, b)
+    steps = int(runs[0].hist_steps.max())
+    assert steps == cut if cut else steps < kw["l_cap"]
