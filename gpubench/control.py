@@ -13,9 +13,10 @@ those (the upper readings):
 * lines: the reference recognizer with every convolution and matrix
   product on float8 e4m3 operands decodes the lines (greedy CTC, or the
   accurate rule);
-* pages: the reference DB net with TF32 on draws the boxes and their
-  scores (``reference/boxes.py``), and the float8 recognizer reads their
-  crops.
+* pages: the configuration's reference detector one step down
+  (``reference/detectors/<method>.py`` with ``control=True``; DB: its net
+  with TF32 on, boxes by ``reference/boxes.py``) draws the boxes and their
+  scores, and the float8 recognizer reads their crops.
 
 Prints one JSON line per seed and side. Runs on the card only; the
 benchmark's own runs never run it.
@@ -38,9 +39,9 @@ def control_answers(cell, cfg, traffic, served, keys, device):
     """The control's answers for the sampled inputs ``keys``."""
     from pathlib import Path
 
-    from reference.boxes import crop_lines, page_boxes
+    from reference import detectors
+    from reference.boxes import crop_lines
     from reference.check import ENGINE_METHOD
-    from reference.detector import RefDB
     from reference.judge import read_lines
     from reference.recognizer import RefRecognizer
     from reference.tokens import Vocab
@@ -58,11 +59,11 @@ def control_answers(cell, cfg, traffic, served, keys, device):
         texts = read(traffic["imgs"][keys], traffic["widths"][keys])
         return {k: (t, 0.0) for k, t in zip(keys, texts)}
     det = config["detector"]
-    db = RefDB(root / det["checkpoint"], device, tf32=True)
+    detector = detectors.load(det, root, device, control=True)
     out = {}
     for k in keys:
         page = traffic["pages"][k]
-        boxes = page_boxes(db.u16_map(page), page, det)
+        boxes = detector.boxes(page)
         lines, widths, kept = crop_lines(cfg, page, [b["box"] for b in boxes],
                                          det["crop_padding"])
         out[k] = [{"box": list(boxes[j]["box"]), "text": t,

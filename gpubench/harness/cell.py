@@ -10,7 +10,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from flops import dbnet, recognizer, stem
+from flops import recognizer, stem
+from flops.detectors import page_flop
 from reference.check import ENGINE_METHOD, run as ref_check
 from traffic import make
 from traffic.preprocess import content_width, width_bucket
@@ -67,10 +68,11 @@ def account(cell: Dict, cfg: Dict, traffic: Dict, idx, out: Dict) -> Dict:
             for b, n in per.items() for s in range(0, n, top))
         return rec
     h, w = int(cfg["IMG_H"]), int(cfg["IMG_W"])
+    det = cell["config"]["detector"]
     flops = 0.0
     for i, rows in zip(idx, out["answers"]):
         page = traffic["pages"][i]
-        flops += dbnet.map_flop(*dbnet.canvas(*page.shape))
+        flops += page_flop(det, *page.shape)
         for r in rows or []:
             x, y, bw, bh = r["box"]
             ch = min(page.shape[0], y + bh + 5) - max(0, y - 5)

@@ -56,7 +56,8 @@ class Pages:
         self.ocr = OCR(model_path=str(root / config["checkpoint"]),
                        det_model_path=str(root / config["detector"]
                                           ["checkpoint"]),
-                       det_method="db", decode_method=mix["method"],
+                       det_method=config["detector"]["method"],
+                       decode_method=mix["method"],
                        preprocess=config["detector"]["preprocess"],
                        device=device)
         self.entry = mix["entry"]

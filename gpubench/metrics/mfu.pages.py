@@ -1,7 +1,8 @@
 """The whole step's share of the chip's bf16 peak, in %: the model FLOP
-the untraced calls' inputs need (``flops/recognizer.py`` and
-``flops/dbnet.py``; DB runs in float32 but is held to the same bf16 peak)
-over the calls' wall seconds x 989e12 (host clock)."""
+the untraced calls' inputs need (``flops/recognizer.py`` and the
+configuration's detector, ``flops/detectors/<method>.py``; DB runs in
+float32 but is held to the same bf16 peak) over the calls' wall seconds x
+989e12 (host clock)."""
 from flops import PEAK_BF16
 
 

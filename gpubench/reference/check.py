@@ -22,7 +22,7 @@ from typing import Dict
 
 import numpy as np
 
-from .detector import RefDB
+from . import detectors
 from .judge import page_checks, text_edits
 from .recognizer import RefRecognizer
 from .tokens import Vocab
@@ -72,9 +72,10 @@ def run(cell: Dict, cfg: Dict, program_cfg: Dict, traffic: Dict,
         keys = sample(served, int(mix["check_pages"]), seed)
         rows = [served[k] for k in keys]
         numbers["unanswered"] = sum(r is None for r in rows)
-        db = RefDB(root / config["detector"]["checkpoint"], device)
-        pages = page_checks(ref, db, vocab, cfg, config["detector"], method,
-                            [traffic["pages"][k] for k in keys], rows)
+        detector = detectors.load(config["detector"], root, device)
+        pages = page_checks(ref, detector, vocab, cfg, config["detector"],
+                            method, [traffic["pages"][k] for k in keys],
+                            rows)
         numbers["det_gap"] = max(pages["det_gap"])
         numbers["box_gap"] = max(pages["box_gap"])
         counts, gaps = pages["counts"], pages["gaps"]

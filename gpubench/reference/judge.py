@@ -19,8 +19,9 @@
   prefix; texts map back to the model's visual-order tokens through
   ``Vocab.visual_forms``, which is not always unique.
 * ``det_gap`` and ``box_gap`` of a page (``page_checks``): the served
-  boxes against the reference's own (``reference/boxes.py``), matched in
-  order; the widest over the sampled pages.
+  boxes against the reference detector's own (``reference/detectors/``;
+  DB's in ``reference/boxes.py``), matched in order; the widest over the
+  sampled pages.
 
 The same functions read for the control (``read_lines`` on a reference in
 float8), so its answers are judged as the program's.
@@ -35,8 +36,7 @@ import torch.nn.functional as F
 
 from traffic.preprocess import width_bucket
 
-from .boxes import crop_lines, page_boxes
-from .detector import RefDB
+from .boxes import crop_lines
 from .recognizer import RefRecognizer
 from .tokens import BLANK, BOS, CTC_OFFSET, DEC_OFFSET, EOS, Vocab
 
@@ -401,13 +401,15 @@ def align(served: Sequence, mine: Sequence) -> List[Tuple[int, int, float]]:
     return pairs[::-1]
 
 
-def page_checks(ref: RefRecognizer, db: RefDB, vocab: Vocab, cfg: Dict,
+def page_checks(ref: RefRecognizer, detector, vocab: Vocab, cfg: Dict,
                 det: Dict, method: str, pages: Sequence[np.ndarray],
                 served: Sequence) -> Dict:
     """The pages' checks, for pages whose served results (a list of result
-    dicts, None: never served) are given. The reference draws each page's
-    boxes from its own map (``boxes.page_boxes``) and reads its own crops;
-    the served rows are aligned with its boxes (``align``). Returns
+    dicts, None: never served) are given. The reference ``detector`` (of
+    ``reference/detectors/``) draws each page's boxes in reading order and
+    the reference reads its own crops of them; the served rows are aligned
+    with its boxes (``align``). A page with no reference box (a blank one)
+    pairs nothing: each served row there is unpaired. Returns
     {"det_gap": [per page], "box_gap": [per page], "counts":
     ``text_edits``'s counts, "gaps": per line}:
 
@@ -425,7 +427,7 @@ def page_checks(ref: RefRecognizer, db: RefDB, vocab: Vocab, cfg: Dict,
             out["det_gap"].append(MISSING)
             out["box_gap"].append(MISSING)
             continue
-        mine = page_boxes(db.u16_map(page), page, det)
+        mine = detector.boxes(page)
         lines, widths, kept = crop_lines(cfg, page, [b["box"] for b in mine],
                                          det["crop_padding"])
         mine = [mine[k] for k in kept]

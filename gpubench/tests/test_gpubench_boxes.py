@@ -52,6 +52,19 @@ def test_boxes_equal_the_programs_detector(pages, maps):
     assert split > 0
 
 
+def test_db_adapter_equals_the_code_it_wraps(pages, maps):
+    from reference import detectors
+
+    ours = detectors.load(DET, spec.ROOT, "cpu")
+    assert [ours.boxes(p) for p in pages] == [
+        page_boxes(m, p, DET) for p, m in zip(pages, maps)]
+    low = detectors.load(DET, spec.ROOT, "cpu", control=True)
+    tf32 = RefDB(spec.ROOT / DET["checkpoint"], "cpu", tf32=True)
+    assert low.net.tf32 and not ours.net.tf32
+    assert [low.boxes(p) for p in pages] == [
+        page_boxes(tf32.u16_map(p), p, DET) for p in pages]
+
+
 def test_crops_and_canvas_follow_opencv(pages, maps):
     cv2 = pytest.importorskip("cv2", reason="OpenCV is the witness")
     cfg = CONFIG["model"]

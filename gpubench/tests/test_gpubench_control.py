@@ -16,6 +16,8 @@ SIZES = {"lines-fast": {"quota": {"english": {"160": 8, "320": 24,
                                               "480": 24, "640": 16},
                                   "khmer": {"320": 32, "480": 24}},
                         "check_lines": 128},
+         "lines-accurate": {"sizes": spec.load_cell("lines-accurate")
+                            ["mix"]["sizes"][:1], "check_lines": 128},
          "page-interactive": {"sizes": [[960, 1280], [1280, 960]],
                               "layouts": ["dense", "two_column"],
                               "check_pages": 2}}

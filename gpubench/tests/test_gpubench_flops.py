@@ -3,8 +3,9 @@ import json
 
 import pytest
 
-from flops import dbnet, recognizer, stem
+from flops import dbnet, detectors, recognizer, stem
 from harness import spec
+from traffic import make
 
 CFG = dict(json.loads((spec.HERE / "configs" / "kiri-ocr-v13.json")
                       .read_text())["model"], VOCAB=208)
@@ -58,3 +59,13 @@ def test_dbnet_hand_count():
     assert dbnet.canvas(1280, 960) == (960, 704)
     assert dbnet.canvas(640, 640) == (704, 704)
     assert dbnet.canvas(960, 1280) == (704, 960)
+
+
+def test_db_page_flop_is_the_nets_on_its_canvas():
+    det = json.loads((spec.HERE / "configs" / "kiri-ocr-v13-db.json")
+                     .read_text())["detector"]
+    sizes = make.load_mix("pages-batch")["sizes"]
+    assert len(sizes) == 32
+    for w, h in sizes:
+        assert detectors.page_flop(det, h, w) == dbnet.map_flop(
+            *dbnet.canvas(h, w))

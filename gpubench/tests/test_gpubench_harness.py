@@ -2,6 +2,7 @@
 versions), the faults the check must catch, and a cell added as new files
 only."""
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -16,6 +17,11 @@ from harness.cell import run_cell
 TINY_LINES = {"quota": {"english": {"160": 2, "320": 2, "480": 1, "640": 1},
                         "khmer": {"160": 1, "320": 1}},
               "batch": 4, "check_lines": 4}
+#: The same eight lines' sizes, call by call, for a mix that fixes them.
+TINY_SIZES = [[["english", 160, 7], ["english", 320, 12], ["khmer", 160, 9],
+               ["english", 480, 22]],
+              [["english", 160, 6], ["english", 320, 14], ["khmer", 320, 17],
+               ["english", 640, 31]]]
 TINY_PAGES = {"sizes": [[640, 640], [960, 640]],
               "layouts": ["single_column", "two_column"], "batch": 2,
               "check_pages": 2}
@@ -31,7 +37,10 @@ def few_threads():
 
 
 def tiny(cell):
-    return TINY_LINES if cell["mix"]["inputs"] == "lines" else TINY_PAGES
+    if cell["mix"]["inputs"] != "lines":
+        return TINY_PAGES
+    return (dict(TINY_LINES, sizes=TINY_SIZES) if "sizes" in cell["mix"]
+            else TINY_LINES)
 
 
 def run_tiny(name, traced=False, seconds=0.5):
@@ -151,7 +160,9 @@ def test_faults_fail_the_pages_check(monkeypatch, fault):
 
 
 # ------------------------------------------------- a cell as new files only
-def test_new_cell_metric_and_config_as_new_files(tmp_path):
+def copy_checkout(tmp_path):
+    """A checkout of the benchmark in ``tmp_path`` (the program and models
+    linked), and the bytes of each of its files."""
     root = tmp_path / "checkout"
     shutil.copytree(spec.HERE, root / "gpubench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -160,6 +171,11 @@ def test_new_cell_metric_and_config_as_new_files(tmp_path):
         (root / name).symlink_to(spec.ROOT / name)
     before = {p: p.read_bytes() for p in (root / "gpubench").rglob("*")
               if p.is_file()}
+    return root, before
+
+
+def test_new_cell_metric_and_config_as_new_files(tmp_path):
+    root, before = copy_checkout(tmp_path)
     g = root / "gpubench"
     config = json.loads((g / "configs" / "kiri-ocr-v13.json").read_text())
     config["name"] = "kiri-ocr-v13-copy"
@@ -204,5 +220,138 @@ def test_new_cell_metric_and_config_as_new_files(tmp_path):
     assert line["correct"] is True
     assert line["metrics"]["lines_per_call"]["value"] == 2.0
     assert set(line["metrics"]) == {"lines_per_call"}
+    for p, data in before.items():
+        assert p.read_bytes() == data, f"{p} was edited"
+
+
+@pytest.mark.parametrize("method,stubs,missing", [
+    (None, [], "detector.method"),
+    ("craft", [], "gpubench/reference/detectors/craft.py"),
+    ("craft", ["reference"], "gpubench/flops/detectors/craft.py"),
+    ("craft", ["flops"], "gpubench/reference/detectors/craft.py")])
+def test_pages_configuration_refused_without_its_detector(
+        tmp_path, monkeypatch, method, stubs, missing):
+    root, _ = copy_checkout(tmp_path)
+    g = root / "gpubench"
+    config = json.loads((g / "configs" / "kiri-ocr-v13-db.json").read_text())
+    config["name"] = "kiri-ocr-v13-x"
+    config["detector"].pop("method")
+    if method is not None:
+        config["detector"]["method"] = method
+    (g / "configs" / "kiri-ocr-v13-x.json").write_text(json.dumps(config))
+    for part in stubs:
+        (g / part / "detectors" / f"{method}.py").write_text("")
+    (g / "workloads" / "pages-x.json").write_text(
+        (g / "workloads" / "page-interactive.json").read_text())
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "kiri-ocr-v13-x", "source": "x",
+                             "file": "gpubench/configs/kiri-ocr-v13-x.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "pages-x", "config": "kiri-ocr-v13-x",
+                               "traffic": "page-interactive", "chips": 1,
+                               "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.setattr(spec, "HERE", g)
+    assert spec.load_cell("page-interactive", root)["config"]["detector"][
+        "method"] == "db"
+    with pytest.raises(SystemExit, match=re.escape(missing)):
+        spec.load_cell("pages-x", root)
+
+
+# --------------------------------------------- a detector as new files only
+#: The stub's FLOP a page, and the copy's cell on small pages.
+STUB_FLOP = 1.25e9
+CRAFT_PAGES = {"sizes": [[320, 320], [480, 320]],
+               "layouts": ["single_column", "two_column"], "check_pages": 2}
+
+
+def test_new_detector_as_new_files(tmp_path):
+    """A configuration whose detector is the program's CRAFT, with a stub
+    reference that finds no boxes and a stub FLOP count, runs through
+    ``run_cell`` in a copy of the tree after adding files only."""
+    import pickle
+
+    from harness.cell import line_work, model_cfg
+    from reference.check import ENGINE_METHOD
+    from traffic.preprocess import content_width
+
+    root, before = copy_checkout(tmp_path)
+    g = root / "gpubench"
+    config = json.loads((g / "configs" / "kiri-ocr-v13-db.json").read_text())
+    config.update(name="kiri-ocr-v13-craft", detector={
+        "method": "craft", "checkpoint": "models/craft.safetensors",
+        "crop_padding": 5, "preprocess": "host"})
+    (g / "configs" / "kiri-ocr-v13-craft.json").write_text(json.dumps(config))
+    (g / "reference" / "detectors" / "craft.py").write_text(
+        "class NoBoxes:\n"
+        "    def boxes(self, page):\n"
+        "        return []\n\n\n"
+        "def load(det, root, device, control=False):\n"
+        "    return NoBoxes()\n")
+    (g / "flops" / "detectors" / "craft.py").write_text(
+        f"def page_flop(det, h, w):\n    return {STUB_FLOP!r}\n")
+    mix = json.loads((g / "traffic" / "mixes" / "page-interactive.json")
+                     .read_text())
+    mix.update(CRAFT_PAGES)
+    (g / "traffic" / "mixes" / "pages-craft.json").write_text(json.dumps(mix))
+    (g / "workloads" / "pages-craft.json").write_text(
+        (g / "workloads" / "page-interactive.json").read_text())
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "kiri-ocr-v13-craft", "source": "x",
+                             "file": "gpubench/configs/kiri-ocr-v13-craft."
+                             "json", "reduced": [], "why": "a stub"})
+    bench["workloads"].append({"name": "pages-craft",
+                               "config": "kiri-ocr-v13-craft",
+                               "traffic": "pages-craft", "chips": 1,
+                               "why": "a throwaway cell"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    # The run, with the detector's forwards and each call's accounting
+    # recorded on the side.
+    code = ("import sys, json, pickle, torch; torch.set_num_threads(2)\n"
+            f"sys.path[:0] = [{str(g)!r}, {str(root)!r}]\n"
+            "from harness import spec, cell as C\n"
+            "from kiri_tpu_torch.detect.craft import CRAFTDetector\n"
+            "forwards, calls = [], []\n"
+            "fwd, account = CRAFTDetector.forward_maps, C.account\n"
+            "def forward_maps(self, canvases):\n"
+            "    forwards.append(len(canvases))\n"
+            "    return fwd(self, canvases)\n"
+            "def recorded(cell, cfg, traffic, idx, out):\n"
+            "    rec = account(cell, cfg, traffic, idx, out)\n"
+            "    calls.append(([traffic['pages'][i].shape for i in idx],\n"
+            "                  out['answers'], rec['flops']))\n"
+            "    return rec\n"
+            "CRAFTDetector.forward_maps, C.account = forward_maps, recorded\n"
+            "cell = spec.load_cell('pages-craft')\n"
+            f"line = C.run_cell(cell, {SEED}, 0.3, False, device='cpu')\n"
+            f"pickle.dump((forwards, calls), open({str(tmp_path / 'rec')!r},"
+            " 'wb'))\n"
+            "print(json.dumps(line))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
+                              "device"]
+    assert line["check"]["det_gap"]["value"] == 1.0
+    assert line["correct"] is False
+    forwards, calls = pickle.loads((tmp_path / "rec").read_bytes())
+    assert sum(forwards) >= len(calls) > 0
+    cfg = model_cfg(spec.load_cell("page-interactive"))
+    method = ENGINE_METHOD[mix["method"]]
+    h, w = cfg["IMG_H"], cfg["IMG_W"]
+    served = 0
+    for shapes, answers, flops in calls:
+        want = STUB_FLOP * len(shapes)
+        for (ph, pw), rows in zip(shapes, answers):
+            for r in rows:
+                x, y, bw, bh = r["box"]
+                crop = (min(ph, y + bh + 5) - max(0, y - 5),
+                        min(pw, x + bw + 5) - max(0, x - 5))
+                want += line_work(cfg, method, content_width(crop, h, w),
+                                  r["text"])
+                served += 1
+        assert flops == pytest.approx(want, rel=1e-12)
+    assert served > 0
     for p, data in before.items():
         assert p.read_bytes() == data, f"{p} was edited"

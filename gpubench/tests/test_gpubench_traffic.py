@@ -81,3 +81,43 @@ def test_page_pool_holds_the_sizes_and_layouts():
     pool = make.pages(mix, 2 ** 31 + 6)
     assert sorted(pool["sizes"]) == [(640, 960), (960, 640)]
     assert sorted(p.shape for p in pool["pages"]) == [(640, 960), (960, 640)]
+
+
+def _sizes(pool, cfg, lo, hi):
+    return sorted([s, preprocess.width_bucket(cfg, int(w)), len(t)]
+                  for s, w, t in zip(pool["scripts"][lo:hi],
+                                     pool["widths"][lo:hi],
+                                     pool["texts"][lo:hi]))
+
+
+def test_sized_lines_hold_their_sizes_on_every_seed():
+    cfg = {"IMG_H": 48, "IMG_W": 640, "WIDTH_BUCKETS": [160, 320, 480, 640]}
+    plan = [[["english", 160, 7], ["khmer", 320, 17], ["english", 480, 22]],
+            [["khmer", 160, 9], ["english", 320, 12], ["khmer", 640, 40]]]
+    mix = dict(make.load_mix("lines-accurate"), sizes=plan, batch=3)
+    from harness import spec
+
+    pools = [make.make(mix, seed, cfg, spec.ROOT / "models/vocab.json")
+             for seed in (2 ** 31 + 7, 2 ** 31 + 8)]
+    for pool in pools:
+        assert pool["imgs"].shape == (6, 48, 640)
+        for k, call in enumerate(plan):
+            assert _sizes(pool, cfg, 3 * k, 3 * k + 3) == sorted(call)
+    assert pools[0]["texts"] != pools[1]["texts"]
+    again = make.make(mix, 2 ** 31 + 7, cfg, spec.ROOT / "models/vocab.json")
+    assert np.array_equal(again["imgs"], pools[0]["imgs"])
+
+
+def test_accurate_sizes_are_the_plan_of_their_seed():
+    from harness import spec
+    from harness.cell import model_cfg
+
+    cell = spec.load_cell("lines-accurate")
+    cfg, mix = model_cfg(cell), cell["mix"]
+    quota_mix = {k: v for k, v in mix.items() if k != "sizes"}
+    pool = make.make(quota_mix, mix["sizes_seed"], cfg,
+                     spec.ROOT / cell["config"]["vocab"])
+    assert make.size_plan(pool, cfg, mix["batch"]) == mix["sizes"]
+    assert all(len(c) == mix["batch"] for c in mix["sizes"])
+    assert sum(len(c) for c in mix["sizes"]) == sum(
+        n for per in mix["quota"].values() for n in per.values())
